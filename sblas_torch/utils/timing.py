@@ -1,0 +1,121 @@
+"""Timing on the card: the port of ``sblas/utils/timing.py``.
+
+Every measurement is the **marginal** cost of one more iteration of a
+carry-dependent step, ``(t(hi) - t(lo)) / (hi - lo)``, so fixed costs
+(launch of the first kernel, the events themselves) cancel. The ``hi`` and
+``lo`` runs are each captured once into a CUDA graph and replayed between
+two ``torch.cuda.Event``s: that is the counterpart of the JAX package's
+on-device ``fori_loop``, and it keeps the host's per-call Python cost out of
+a number that stands for the device. A path that finds no card raises.
+
+GB/s comes from the caller's bytes model, and bandwidth is also reported as
+a share of a STREAM triad measured on the same card (the north-star
+metric, BASELINE.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass
+class BenchRecord:
+    name: str
+    seconds_per_iter: float
+    flops: float = 0.0
+    bytes: float = 0.0
+    extra: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def gflops(self) -> float:
+        return self.flops / self.seconds_per_iter / 1e9
+
+    @property
+    def gbps(self) -> float:
+        return self.bytes / self.seconds_per_iter / 1e9
+
+
+def _graph_of(step: Callable, init: torch.Tensor, args, k: int):
+    """A CUDA graph of ``k`` chained steps from ``init``."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        c = init
+        for _ in range(k):
+            c = step(c, *args)
+    return g, c
+
+
+def measure_seconds_per_iter(step: Callable, init: torch.Tensor, *args,
+                             iters_lo: int = 5, iters_hi: int = 25,
+                             repeats: int = 3) -> float:
+    """Marginal seconds per iteration of ``step(carry, *args) -> carry``.
+
+    ``step`` must return a tensor like its carry, so that each iteration
+    depends on the one before. The best of ``repeats`` marginal samples is
+    returned.
+    """
+    if not (isinstance(init, torch.Tensor) and init.is_cuda):
+        raise RuntimeError("measure_seconds_per_iter times on a CUDA device; "
+                           f"got a carry on {getattr(init, 'device', None)}")
+    if iters_hi <= iters_lo:
+        raise ValueError("iters_hi must exceed iters_lo")
+    with torch.cuda.device(init.device):
+        # warm on a side stream, as graph capture requires: first launches
+        # load modules and fill the caching allocator
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            c = init
+            for _ in range(3):
+                c = step(c, *args)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graphs = {k: _graph_of(step, init, args, k)
+                  for k in (iters_lo, iters_hi)}
+
+        def timed(k):
+            g = graphs[k][0]
+            g.replay()                      # warm the replay path
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) * 1e-3
+
+        samples = []
+        for _ in range(repeats):
+            lo, hi = timed(iters_lo), timed(iters_hi)
+            samples.append((hi - lo) / (iters_hi - iters_lo))
+    best = min(samples)
+    if best <= 0:
+        raise RuntimeError(f"iteration time did not scale: {samples}")
+    return best
+
+
+# 256 MiB per array: three of them are over 15x the H100's 50 MB L2
+STREAM_BYTES = 256 * (1 << 20)
+_STREAM_CACHE: dict = {}
+
+
+def stream_bandwidth(device=None, *, fresh: bool = False) -> float:
+    """Measured STREAM-triad bandwidth (GB/s) of a CUDA device:
+    ``x <- x + 2 b`` over f32 arrays of ``STREAM_BYTES``, counted as three
+    arrays moved per iteration. ``fresh=True`` measures anew (the ratio
+    protocol pairs each kernel sample with its own triad)."""
+    device = torch.device(device if device is not None else "cuda")
+    key = str(device)
+    if not fresh and key in _STREAM_CACHE:
+        return _STREAM_CACHE[key]
+    n = STREAM_BYTES // 4
+    b = torch.ones(n, dtype=torch.float32, device=device)
+    x = torch.zeros(n, dtype=torch.float32, device=device)
+    per = measure_seconds_per_iter(lambda c, b: torch.add(c, b, alpha=2.0),
+                                   x, b, iters_lo=4, iters_hi=16, repeats=2)
+    bw = 3 * n * 4 / per / 1e9
+    _STREAM_CACHE[key] = bw
+    return bw

@@ -1,0 +1,116 @@
+"""What runs on the card: the CUDA kernel against its plain version, the
+main path through it, and the timing harness that refuses to time a CPU.
+
+The ``cuda`` tests skip where torch sees no card. This file imports no JAX,
+so on a machine with a card it runs on its own:
+
+    python -m pytest --noconftest tests/test_torch_device.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sblas import datasets
+from sblas.formats import CSR
+import sblas_torch
+from sblas_torch.formats import to_device
+from sblas_torch.golden import KERNEL_TOL, rel_err, spmv_golden
+from sblas_torch.ops.kernels import spmv_csr as kern
+from sblas_torch.utils.timing import measure_seconds_per_iter
+
+MATRICES = {
+    "banded": lambda: datasets.banded(300, 5, seed=1),
+    "empty_rows": lambda: datasets.random_csr(100, 90, 2, seed=4),
+    "skewed": lambda: datasets.random_csr(400, 400, 12, skew=1.2, seed=3),
+    "long_rows": lambda: datasets.random_csr(64, 5000, 900, seed=5),
+    "no_entries": lambda: CSR((5, 7), np.zeros(6, np.int32),
+                              np.zeros(0, np.int32), np.zeros(0, np.float32)),
+}
+
+
+@pytest.fixture
+def cuda():
+    # decided here, not at import: every test worker collects the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _vec(n, seed):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_kernel_vs_plain_on_card(cuda, name, vdt):
+    a = MATRICES[name]()
+    t = kern.prepare(to_device(a, cuda, vdt))
+    x = torch.from_numpy(_vec(a.shape[1], 1)).to(cuda)
+    y = torch.from_numpy(_vec(a.shape[0], 2)).to(cuda)
+    for group, args in [(t["group"], (2.5, -0.5, y)),
+                        (t["group"], (1.0, 0.0, None)),
+                        *[(g, (2.5, -0.5, y)) for g in kern.GROUPS]]:
+        before = kern.LAUNCHES
+        got = kern.spmv_csr({**t, "group": group}, x, *args)
+        torch.cuda.synchronize()
+        assert kern.LAUNCHES == before + (a.shape[0] > 0)
+        want = kern.spmv_csr_reference(t, x, *args)
+        assert got.shape == (a.shape[0],) and torch.isfinite(got).all()
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= KERNEL_TOL
+
+
+@pytest.mark.cuda
+def test_main_path_goes_through_the_kernel(cuda):
+    a = datasets.emulate("cant", scale=0.05)
+    x, y0 = _vec(a.shape[1], 3), _vec(a.shape[0], 4)
+    before = kern.LAUNCHES
+    out = sblas_torch.spmv(a, x, 2.5, -0.5, y0, device=cuda)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda"
+    assert kern.LAUNCHES == before + 1
+    assert rel_err(out.cpu().numpy(),
+                   spmv_golden(a, x, 2.5, -0.5, y0)) < 2e-5
+
+
+def test_timing_refuses_a_cpu_carry():
+    x = torch.zeros(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_seconds_per_iter(lambda c: c + 1, x)
+
+
+def test_bench_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("there is a card here")
+    from sblas_torch.bench_lib import bench_spmv
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_spmv(datasets.banded(32, 2), device="cpu")
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    # alone in a directory, or on a machine where torch sees no card, the
+    # smoke run exits non-zero and prints no result line
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    shutil.copy(script, tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", src, re.M)
+    assert "sblas_torch" in imports
+    assert not [m for m in imports
+                if m.split(".")[0] in ("jax", "jaxlib", "sblas")], imports
