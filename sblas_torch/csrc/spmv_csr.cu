@@ -18,8 +18,8 @@
 //     caller from the mean row length) owns one row and strides over its
 //     nonzeros, so neighbouring lanes load neighbouring indices and values;
 //     x is gathered through the read-only path (__ldg). The caller's rule
-//     is the simple one; chip_smoke.py's group sweep (PERF.md) found G = 8
-//     faster than G = 32 at 58-112 nonzeros per row;
+//     (spmv_csr.group_size) follows chip_smoke.py's group sweep (PERF.md):
+//     G = 8 at 58-112 nonzeros per row;
 //   * fp32 FMA accumulation, bf16 values upcast in registers;
 //   * a shuffle reduction inside the group, then a fused alpha/beta
 //     epilogue by the group's first lane. y_in == nullptr means "no y" and

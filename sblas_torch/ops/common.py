@@ -1,18 +1,19 @@
 """Input normalization shared by the port's op entry points.
 
-Same contract as ``sblas/ops/common.py`` (re-implemented, because
-``sblas.ops`` imports JAX): every entry point accepts ``CSR | CSC`` and a
-``trans=`` flag, and :func:`as_csr` reduces the four combinations to a CSR
-of the operator actually applied. Derived matrices are cached weakly per
-source object, so repeated calls reuse both the host conversion and,
-through the plan cache keyed on the derived CSR, its device tensors.
+Every entry point accepts the port's ``CSR | CSC`` and a ``trans=`` flag,
+and :func:`as_csr` reduces the four combinations to a CSR of the operator
+actually applied. A matrix of any other class, the JAX package's included,
+raises ``TypeError`` naming :func:`sblas_torch.formats.from_reference`.
+Derived matrices are cached weakly per source object, so repeated calls
+reuse both the host conversion and, through the plan cache keyed on the
+derived CSR, its device tensors.
 """
 
 from __future__ import annotations
 
 import weakref
 
-from sblas.formats import CSC, CSR, csr_transpose
+from ..formats import CSC, CSR, csr_transpose
 
 # source matrix -> {"csr": CSR of A, "csr_T": CSR of A^T}
 _DERIVED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -23,7 +24,7 @@ def as_csr(a, trans: bool = False) -> CSR:
 
     A CSC of A is byte-identical to a CSR of A^T, so (CSC, trans=True) is a
     zero-copy reinterpretation; the other derived forms run one cached host
-    transpose (``sblas.formats.csr_transpose``).
+    transpose (``formats.csr_transpose``).
     """
     if isinstance(a, CSR):
         if not trans:
@@ -35,7 +36,10 @@ def as_csr(a, trans: bool = False) -> CSR:
             return _derived(a, "csr_T",
                             lambda: CSR((n, m), a.indptr, a.indices, a.data))
         return _derived(a, "csr", a.tocsr)
-    raise TypeError(f"expected sblas.CSR or sblas.CSC, got {type(a).__name__}")
+    raise TypeError(
+        f"expected sblas_torch.CSR or sblas_torch.CSC, got "
+        f"{type(a).__module__}.{type(a).__name__}; convert a matrix of "
+        "another package with sblas_torch.from_reference(a)")
 
 
 def _derived(src, key: str, build) -> CSR:

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All ``sblas_torch/csrc/*.cu`` files compile in one ``nvcc`` call into one
-shared library with a plain C interface, loaded with ``ctypes``:
+Each ``sblas_torch/csrc/*.cu`` file compiles in its own ``nvcc``
+process, all started together, and one more call links the objects into
+one shared library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/sblas_torch/libsblas_torch_kernels_<h>.so
-         sblas_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <tmp>/<name>.o sblas_torch/csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/sblas_torch/libsblas_torch_kernels_<h>.so <tmp>/*.o
 
 ``<h>`` hashes the sources and the flags, so a library built from other
 sources is never loaded. The build happens at first use, from the sources
@@ -27,10 +29,13 @@ from ...utils.backend import find_nvcc
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sblas_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _LIB: ctypes.CDLL | None = None
+_ENTRIES: dict = {}
 
 
 def sources(src_dir: Path = CSRC) -> list[Path]:
@@ -40,7 +45,7 @@ def sources(src_dir: Path = CSRC) -> list[Path]:
 def library_path(src_dir: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
     """Where the library built from ``src_dir`` lives: keyed on a hash of
     every ``.cu``/``.cuh`` there and of the nvcc flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -65,22 +70,37 @@ def build(src_dir: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
             "nvcc not found (looked on PATH and under $CUDA_HOME/bin): the "
             "CUDA kernels of sblas_torch cannot be built")
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
+    # objects in a temporary directory, the library under a temporary name
+    # and then renamed: a concurrent loader never sees a half-written one
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in srcs]
+        outs = [Path(tmp) / f"{p.stem}.out" for p in srcs]
+        procs = []
+        for src, obj, out in zip(srcs, objs, outs):
+            with open(out, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait()
+        logs = [f"== {src.name}\n{out.read_text()}"
+                for src, out in zip(srcs, outs)]
+        failed = [(src, proc.returncode) for src, proc in zip(srcs, procs)
+                  if proc.returncode != 0]
+        if failed:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building "
-                f"{[p.name for p in srcs]}:\n{proc.stderr}{proc.stdout}")
-        lib.with_suffix(".log").write_text(proc.stderr + proc.stdout)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc failed compiling {[(s.name, rc) for s, rc in failed]}:"
+                "\n" + "".join(logs))
+        so = Path(tmp) / lib.name
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(so),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}) "
+                               f"linking {[p.name for p in srcs]}:\n"
+                               f"{proc.stderr}{proc.stdout}")
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(so, lib)
     return lib
 
 
@@ -90,3 +110,19 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         _LIB = ctypes.CDLL(str(build()))
     return _LIB
+
+
+def entry(symbol: str, argtypes: list) -> tuple:
+    """``(fn, error_string)``: the library's C entry point ``symbol``,
+    which returns a ``cudaError_t``, with its argument types set, and the
+    library's ``sblas_cuda_error_string`` that names such an error."""
+    if symbol not in _ENTRIES:
+        lib = load()
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = lib.sblas_cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _ENTRIES[symbol] = (fn, err)
+    return _ENTRIES[symbol]

@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from ._build import entry
+
 LAUNCHES = 0
 
 GROUPS = (2, 4, 8, 16, 32)
@@ -29,32 +31,21 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int,                        # m, G
              ctypes.c_void_p, ctypes.c_void_p,                   # x, y_in
              ctypes.c_float, ctypes.c_float,                     # alpha, beta
              ctypes.c_void_p, ctypes.c_void_p]                   # y_out, stream
-_FNS: dict = {}
+
+MAX_GROUP = 8
 
 
 def group_size(m: int, nnz: int) -> int:
-    """Lanes per row: the power of two in 2..32 at or above the mean row
-    length (cant, 58 nnz/row: 32)."""
+    """Lanes per row: the power of two in 2..8 at or above an eighth of the
+    mean row length, so that each lane takes 4 to 8 of a row's nonzeros
+    until the cap. ``chip_smoke.py``'s ``group_sweep`` timed every width
+    on an H100 (PERF.md): G = 8 was fastest at 58 nnz/row (cant) and at
+    110 (fem-band-1M-112M), and G = 16 and 32 slower at both."""
     mean = nnz / max(m, 1)
     g = 2
-    while g < 32 and g < mean:
+    while g < MAX_GROUP and 8 * g < mean:
         g *= 2
     return g
-
-
-def _kernel(value_dtype: torch.dtype):
-    if value_dtype not in _FNS:
-        from ._build import load
-
-        lib = load()
-        fn = getattr(lib, _SYMBOLS[value_dtype])
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        err = lib.sblas_cuda_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _FNS[value_dtype] = (fn, err)
-    return _FNS[value_dtype]
 
 
 def prepare(t: dict) -> dict:
@@ -114,7 +105,7 @@ def spmv_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
     out = torch.empty(m, dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    fn, err = _kernel(op["data"].dtype)
+    fn, err = entry(_SYMBOLS[op["data"].dtype], _ARGTYPES)
     rc = fn(m, op["group"], op["indptr"].data_ptr(), op["indices"].data_ptr(),
             op["data"].data_ptr(), x.data_ptr(),
             None if y is None else y.data_ptr(), alpha, beta,

@@ -23,10 +23,8 @@ import weakref
 import numpy as np
 import torch
 
-from sblas.formats import CSR
-from sblas.retile import to_bucket_ell, to_ell
-
-from ..formats import as_torch_dtype, to_device
+from ..formats import CSR, as_torch_dtype, to_device, upload
+from ..retile import to_bucket_ell, to_ell
 from ..utils.backend import default_device
 from .kernels.spmv_csr import prepare, spmv_csr
 
@@ -36,6 +34,12 @@ _PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 ROUTES = ("csr", "coo", "ell", "bucket")
 NOT_PORTED = ("pseg", "pseg_big", "rcm", "bsr", "pallas_ds")
+
+
+def csr_bytes_per_iter(m: int, n: int, nnz: int, val_bytes: int) -> int:
+    """Bytes one ``csr`` SpMV moves: each nonzero's value and int32 column
+    index, ``indptr``, ``x`` in and ``y`` out (f32)."""
+    return nnz * (val_bytes + 4) + (m + 1) * 4 + n * 4 + m * 4
 
 
 def xla_heuristic(a: CSR) -> tuple[str, str]:
@@ -90,9 +94,8 @@ class SpmvPlan:
                 raise ValueError(f"value_dtype must be f32 or bf16, got {vd}")
             # checked once here, with the launch's lanes per row
             self._op = prepare(to_device(a, self.device, vd))
-            val_bytes = vd.itemsize
-            self.bytes_per_iter = (a.nnz * (val_bytes + 4) + (m + 1) * 4
-                                   + n * 4 + m * 4)
+            self.bytes_per_iter = csr_bytes_per_iter(m, n, a.nnz,
+                                                     vd.itemsize)
         elif method == "coo":
             self._vals = self._up(a.data)
             self._cols = self._up(a.indices)
@@ -113,7 +116,7 @@ class SpmvPlan:
                 b.col.size for b in be.buckets) * (val_bytes + 4)
 
     def _up(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return upload(arr, self.device)
 
     def __repr__(self):
         m, n = self.shape

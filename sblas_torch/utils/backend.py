@@ -1,7 +1,8 @@
 """Device selection and a toolchain probe for the port.
 
 Every plan takes an explicit ``device=``; :func:`default_device` is what it
-gets when the caller gives none. :func:`probe` reports what a run needs to
+gets when the caller gives none: the card, never the CPU by surprise.
+:func:`probe` reports what a run needs to
 know about the machine: the card, the CUDA version torch was built for, the
 ``nvcc`` that builds the kernels, and the card's power limit (an H100 may be
 set below its 700 W, and then runs slower under load).
@@ -18,8 +19,14 @@ import torch
 
 
 def default_device() -> torch.device:
-    """``cuda`` when torch sees a card, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``. Raises ``RuntimeError`` where torch sees no card: the CPU
+    runs the kernels' plain versions only when a caller asks for it with
+    ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "torch sees no CUDA device; pass device='cpu' to run the "
+            "kernels' plain torch versions on the CPU")
+    return torch.device("cuda")
 
 
 def find_nvcc() -> str | None:

@@ -20,6 +20,10 @@ from typing import Callable
 
 import torch
 
+# fp32 FLOP/s of one H100 SXM outside the tensor cores (NVIDIA's data
+# sheet, at the full 700 W power limit): the operations side of a bound
+FP32_FLOPS = 67e12
+
 
 @dataclasses.dataclass
 class BenchRecord:

@@ -43,20 +43,32 @@ def test_failed_build_carries_stderr(monkeypatch, tmp_path):
 
 
 def test_build_passes_sm90a_and_every_source(monkeypatch, tmp_path):
-    # a stand-in nvcc that writes its own arguments to the -o file
-    _fake_nvcc(monkeypatch, tmp_path, """
+    # a stand-in nvcc that logs each call and writes its own arguments to
+    # the -o file
+    calls = tmp_path / "calls.log"
+    _fake_nvcc(monkeypatch, tmp_path, f"""
+echo "$*" >> "{calls}"
 while [ "$1" != "-o" ]; do set -- "$@" "$1"; shift; done
 out="$2"; shift 2
 echo "$@" > "$out"
 echo "ptxas info : Used 30 registers" >&2
 """)
     lib = _build.build(out_dir=tmp_path / "out")
-    args = lib.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args
-    assert "-shared" in args and "-O3" in args
-    srcs = {Path(p).name for p in args if p.endswith(".cu")}
-    assert srcs == {p.name for p in _build.sources()} and "spmv_csr.cu" in srcs
-    assert "registers" in lib.with_suffix(".log").read_text()
+    *compiles, link = [c.split() for c in calls.read_text().splitlines()]
+    # one compile per source, each for sm_90a at -O3, then one link
+    assert "spmv_csr.cu" in {p.name for p in _build.sources()}
+    assert sorted(Path(a).name for c in compiles for a in c
+                  if a.endswith(".cu")) == \
+        sorted(p.name for p in _build.sources())
+    for c in compiles:
+        assert "arch=compute_90a,code=sm_90a" in c
+        assert "-O3" in c and "-c" in c and "-shared" not in c
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert sorted(Path(a).name for a in lib.read_text().split()
+                  if a.endswith(".o")) == \
+        sorted(f"{p.stem}.o" for p in _build.sources())
+    log = lib.with_suffix(".log").read_text()
+    assert "registers" in log and "== spmm_bsr.cu" in log
 
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):

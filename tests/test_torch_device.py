@@ -1,5 +1,6 @@
-"""What runs on the card: the CUDA kernel against its plain version, the
-main path through it, and the timing harness that refuses to time a CPU.
+"""What runs on the card: the CUDA kernels against their plain versions,
+the main paths through them, and the timing harness that refuses to time a
+CPU.
 
 The ``cuda`` tests skip where torch sees no card. This file imports no JAX,
 so on a machine with a card it runs on its own:
@@ -11,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from sblas import datasets
-from sblas.formats import CSR
 import sblas_torch
-from sblas_torch.formats import to_device
-from sblas_torch.golden import KERNEL_TOL, rel_err, spmv_golden
+from sblas_torch import datasets
+from sblas_torch.formats import COO, CSR, to_device
+from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
+                                spmv_golden)
+from sblas_torch.ops.kernels import spmm_bsr as bkern
 from sblas_torch.ops.kernels import spmv_csr as kern
+from sblas_torch.retile_bsr import pack_bsr
 from sblas_torch.utils.timing import measure_seconds_per_iter
 
 MATRICES = {
@@ -72,6 +75,69 @@ def test_main_path_goes_through_the_kernel(cuda):
     assert kern.LAUNCHES == before + 1
     assert rel_err(out.cpu().numpy(),
                    spmv_golden(a, x, 2.5, -0.5, y0)) < 2e-5
+
+
+BLOCK_MATRICES = {
+    "banded": lambda: datasets.banded(300, 5, seed=1),
+    "m!=n": lambda: datasets.random_csr(300, 200, 6, seed=2),
+    "empty_block_rows": lambda: _with_empty_block_rows(),
+    "no_entries": MATRICES["no_entries"],
+    "cant_0.05": lambda: datasets.emulate("cant", scale=0.05),
+}
+
+
+def _with_empty_block_rows():
+    # rows 64..319 hold nothing: block-rows 1 (br=128) and 1..4 (br=64) are
+    # empty, and so are the last rows
+    return _drop_rows(datasets.random_csr(450, 400, 7, seed=6), (64, 320),
+                      (420, 450))
+
+
+def _drop_rows(a, *spans):
+    coo = a.tocoo()
+    keep = np.ones(a.nnz, bool)
+    for lo, hi in spans:
+        keep &= (coo.row < lo) | (coo.row >= hi)
+    return COO(a.shape, coo.row[keep], coo.col[keep], coo.data[keep]).tocsr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("br", [128, 64])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BLOCK_MATRICES))
+def test_block_kernel_vs_plain_on_card(cuda, name, vdt, br):
+    a = BLOCK_MATRICES[name]()
+    op = bkern.prepare(bkern.bsr_to_device(pack_bsr(a, br=br), cuda, vdt))
+    m, n = a.shape
+    for k in (1, 3, 8, 32, 40):
+        x = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, k)).astype(np.float32)).to(cuda)
+        y = torch.from_numpy(np.random.default_rng(k + 1).standard_normal(
+            (m, k)).astype(np.float32)).to(cuda)
+        for args in ((2.5, -0.5, y), (1.0, 0.0, None)):
+            before = bkern.LAUNCHES
+            got = bkern.spmm_bsr(op, x, *args)
+            torch.cuda.synchronize()
+            assert bkern.LAUNCHES == before + 1
+            want = bkern.spmm_bsr_reference(op, x, *args)
+            assert got.shape == (m, k) and torch.isfinite(got).all()
+            assert rel_err(got.cpu().numpy(),
+                           want.cpu().numpy()) <= KERNEL_TOL
+
+
+@pytest.mark.cuda
+def test_spmm_main_path_goes_through_the_block_kernel(cuda):
+    a = datasets.emulate("cant", scale=0.05)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((a.shape[1], 8)).astype(np.float32)
+    y0 = rng.standard_normal((a.shape[0], 8)).astype(np.float32)
+    before = bkern.LAUNCHES
+    out = sblas_torch.spmm(a, x, 2.5, -0.5, y0, k_hint=8, device=cuda)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda"
+    assert bkern.LAUNCHES == before + 1
+    assert rel_err(out.cpu().numpy(),
+                   spmm_golden(a, x, 2.5, -0.5, y0)) < 2e-5
 
 
 def test_timing_refuses_a_cpu_carry():

@@ -1,0 +1,228 @@
+"""The port's own host layer against the JAX package's, on the same seeds.
+
+The port copies ``formats``, ``io``, ``datasets``, ``golden``, ``retile``
+and ``retile_bsr`` instead of importing them. These tests hold every copy
+to the original: the same generator seeds give the same arrays, the same
+retilings give the same layouts, and a matrix written by one package reads
+back identically in the other. No tolerance: the arrays must be equal.
+"""
+
+import gzip
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import sblas
+import sblas_torch
+from sblas import datasets as ref_ds
+from sblas import golden as ref_golden
+from sblas import io as ref_io
+from sblas import retile as ref_retile
+from sblas import retile_bsr as ref_bsr
+from sblas_torch import datasets, golden, io, retile, retile_bsr
+from sblas_torch.formats import CSC, CSR, from_reference
+
+ROOT = Path(__file__).resolve().parents[1]
+
+GENERATORS = {
+    "emulate(cant,0.01)": lambda d: d.emulate("cant", scale=0.01),
+    "emulate(uk-2002,1e-4)": lambda d: d.emulate("uk-2002", scale=1e-4),
+    "random_csr(skew)": lambda d: d.random_csr(300, 200, 6, skew=0.8, seed=3),
+    "random_csr(band,f64)": lambda d: d.random_csr(
+        256, 256, 9, bandwidth=20, seed=4, dtype=np.float64),
+    "banded": lambda d: d.banded(300, 5, seed=1),
+    "powerlaw_graph": lambda d: d.powerlaw_graph(2000, 12, seed=5),
+    "lower_triangular": lambda d: d.lower_triangular(
+        400, 6, bandwidth=30, seed=2),
+    "poisson2d_nd": lambda d: d.poisson2d_nd(12),
+    "spd_diag_dominant": lambda d: d.spd_diag_dominant(200, 6, seed=8),
+}
+
+
+def _same_csr(p, r):
+    assert type(p) is CSR
+    assert tuple(p.shape) == tuple(r.shape)
+    for name in ("indptr", "indices", "data"):
+        got, want = getattr(p, name), getattr(r, name)
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("name", list(GENERATORS))
+def test_generators_match(name):
+    _same_csr(GENERATORS[name](datasets), GENERATORS[name](ref_ds))
+
+
+def test_ell_layouts_match():
+    r = ref_ds.random_csr(500, 400, 10, skew=1.0, seed=7)
+    p = from_reference(r)
+    pe, re_ = retile.to_ell(p), ref_retile.to_ell(r)
+    assert (pe.m, pe.n, pe.width, pe.nnz) == (re_.m, re_.n, re_.width, re_.nnz)
+    np.testing.assert_array_equal(pe.col, re_.col)
+    np.testing.assert_array_equal(pe.val, re_.val)
+    for max_width in (None, 16):
+        pb = retile.to_bucket_ell(p, max_width=max_width)
+        rb = ref_retile.to_bucket_ell(r, max_width=max_width)
+        np.testing.assert_array_equal(pb.perm, rb.perm)
+        assert len(pb.buckets) == len(rb.buckets)
+        for x, y in zip(pb.buckets, rb.buckets):
+            assert x.width == y.width
+            np.testing.assert_array_equal(x.col, y.col)
+            np.testing.assert_array_equal(x.val, y.val)
+
+
+@pytest.mark.parametrize("br", [128, 64])
+def test_pack_bsr_matches(br):
+    r = ref_ds.emulate("cant", scale=0.05)
+    p = from_reference(r)
+    pb = retile_bsr.pack_bsr(p, br=br)
+    rb = ref_bsr.pack_bsr(r, br=br, cache=False)
+    for name in ("m", "n", "nnz", "br", "bc", "nblocks", "num_brows",
+                 "num_bcols"):
+        assert getattr(pb, name) == getattr(rb, name), name
+    for name in ("blocks", "brow", "bcol"):
+        np.testing.assert_array_equal(getattr(pb, name), getattr(rb, name))
+    assert pb.density == rb.density
+    # the port's extensions: CSR pointers over the blocks, and the blocks
+    # transposed
+    assert pb.bptr.dtype == np.int32 and pb.bptr.shape == (pb.num_brows + 1,)
+    np.testing.assert_array_equal(np.repeat(np.arange(pb.num_brows),
+                                            np.diff(pb.bptr)), pb.brow)
+    bt = pb.blocks_t()
+    assert bt.shape == (pb.nblocks, pb.bc, pb.br) and bt.flags.c_contiguous
+    np.testing.assert_array_equal(bt, pb.blocks.transpose(0, 2, 1))
+
+
+def test_pack_bsr_without_entries_has_no_blocks():
+    e = CSR((300, 200), np.zeros(301, np.int32), np.zeros(0, np.int32),
+            np.zeros(0, np.float32))
+    b = retile_bsr.pack_bsr(e)
+    assert b.nblocks == 0 and b.blocks.shape == (0, 128, 128)
+    np.testing.assert_array_equal(b.bptr, np.zeros(4, np.int32))
+
+
+@pytest.mark.parametrize("br", [128, 64])
+@pytest.mark.parametrize("name", ["emulate(cant,0.01)", "powerlaw_graph",
+                                  "random_csr(skew)"])
+def test_bsr_stats_match(name, br):
+    r = GENERATORS[name](ref_ds)
+    assert retile_bsr.bsr_stats(from_reference(r), br=br) == \
+        ref_bsr.bsr_stats(r, br=br)
+
+
+def test_mtx_round_trip_across_packages(tmp_path):
+    a = datasets.random_csr(60, 45, 5, seed=9, dtype=np.float64)
+    io.write_mtx(tmp_path / "a.mtx", a)
+    _same_csr(io.read_mtx(tmp_path / "a.mtx"), a)
+    _same_csr(io.read_mtx(tmp_path / "a.mtx"),
+              ref_io.read_mtx(tmp_path / "a.mtx"))
+    ref_io.write_mtx(tmp_path / "b.mtx", ref_ds.banded(40, 3, seed=2))
+    _same_csr(io.read_mtx(tmp_path / "b.mtx", dtype=np.float32),
+              ref_io.read_mtx(tmp_path / "b.mtx", dtype=np.float32))
+
+
+@pytest.mark.parametrize("field,symmetry", [
+    ("real", "symmetric"), ("integer", "skew-symmetric"),
+    ("pattern", "general"), ("complex", "hermitian")])
+def test_mtx_fields_and_symmetries_match(tmp_path, field, symmetry):
+    rows = [(1, 1), (3, 1), (4, 2), (4, 4)]
+    if symmetry == "skew-symmetric":
+        rows = [rc for rc in rows if rc[0] != rc[1]]
+    vals = {"real": " 2.5", "integer": " 3", "pattern": "",
+            "complex": " 1.5 -0.5"}[field]
+    body = "".join(f"{i} {j}{vals}\n" for i, j in rows)
+    path = tmp_path / "m.mtx.gz"
+    with gzip.open(path, "wt") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} {symmetry}\n"
+                f"% a comment\n4 4 {len(rows)}\n{body}")
+    _same_csr(io.read_mtx(path), ref_io.read_mtx(path))
+
+
+def test_goldens_match():
+    a = datasets.random_csr(80, 60, 5, seed=1)
+    r = ref_ds.random_csr(80, 60, 5, seed=1)
+    x = np.random.default_rng(2).standard_normal((60, 3)).astype(np.float32)
+    y = np.random.default_rng(3).standard_normal((80, 3)).astype(np.float32)
+    np.testing.assert_array_equal(golden.spmm_golden(a, x, 2.0, 0.5, y),
+                                  ref_golden.spmm_golden(r, x, 2.0, 0.5, y))
+    l = datasets.lower_triangular(50, 4, seed=3)
+    b = np.random.default_rng(4).standard_normal(50)
+    np.testing.assert_array_equal(golden.sptrsv_golden(l, b),
+                                  ref_golden.sptrsv_golden(
+                                      ref_ds.lower_triangular(50, 4, seed=3),
+                                      b))
+    assert golden.rel_err(x, x + 1e-3) == ref_golden.rel_err(x, x + 1e-3)
+    for dt in (np.float64, np.float32, np.float16):
+        assert golden.default_tol(dt) == ref_golden.default_tol(dt)
+
+
+def test_from_reference_shares_the_arrays():
+    r = ref_ds.random_csr(30, 20, 4, seed=0)
+    p = from_reference(r)
+    assert type(p) is CSR and p.shape == (30, 20)
+    assert np.shares_memory(p.indices, r.indices)
+    assert np.shares_memory(p.data, r.data)
+    assert from_reference(p) is p
+    c = from_reference(r.tocsc())
+    assert type(c) is CSC
+    np.testing.assert_array_equal(c.tocsr().indices, r.indices)
+    with pytest.raises(TypeError, match="shape, indptr"):
+        from_reference(np.eye(3))
+
+
+@pytest.mark.parametrize("entry", ["SpmvPlan", "SpmmPlan", "spmv", "spmm"])
+def test_entry_points_refuse_the_reference_class(entry):
+    r = ref_ds.random_csr(16, 16, 3, seed=1)
+    x = np.ones((16, 2) if entry.startswith(("spmm", "SpmmPlan")) else 16,
+                np.float32)
+    call = getattr(sblas_torch, entry)
+    args = (r,) if entry[0] == "S" else (r, x)
+    with pytest.raises(TypeError, match="from_reference"):
+        call(*args, device="cpu")
+
+
+def test_the_port_imports_nothing_of_the_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+(sblas|jax|jaxlib)\b", re.M)
+    files = [*sorted((ROOT / "sblas_torch").rglob("*.py")),
+             ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in files for m in pattern.finditer(f.read_text())]
+    assert not hits, hits
+
+
+_SCRIPT = """
+import sys
+import numpy as np
+import sblas_torch
+from sblas_torch import datasets, golden
+
+a = datasets.emulate("cant", scale=0.02)
+n = a.shape[1]
+x = np.random.default_rng(0).standard_normal((n, 4)).astype(np.float32)
+assert golden.rel_err(sblas_torch.spmv(a, x[:, 0], device="cpu").numpy(),
+                      golden.spmv_golden(a, x[:, 0])) < 2e-5
+for method in ("block", "spmv_passes"):
+    out = sblas_torch.spmm(a, x, method=method, device="cpu").numpy()
+    assert golden.rel_err(out, golden.spmm_golden(a, x)) < 2e-5, method
+print("MODULES", sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "sblas")))
+"""
+
+
+def test_spmv_and_spmm_leave_the_jax_package_unloaded():
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "MODULES []" in out.stdout, out.stdout
+
+
+def test_reference_package_is_the_one_compared():
+    # the comparisons above are against the JAX package, not a second copy
+    assert Path(sblas.__file__).parent == ROOT / "sblas"
+    assert torch.__version__

@@ -1,4 +1,5 @@
-"""The port imports on CPU-only torch, without JAX, nvcc or triton."""
+"""The port imports on CPU-only torch, without JAX, nvcc or triton, and
+without the JAX package: its host layer is its own."""
 
 import subprocess
 import sys
@@ -20,8 +21,11 @@ plan = sblas_torch.SpmvPlan(a, device="cpu")
 y = plan(x).numpy()
 assert plan.method == "csr", plan.method
 assert golden.rel_err(y, golden.spmv_golden(a, x)) < 2e-5
-bad = [m for m in ("jax", "triton", "sblas.ops", "sblas.utils")
-       if m in sys.modules]
+X = np.random.default_rng(1).standard_normal((64, 8)).astype(np.float32)
+Y = sblas_torch.spmm(a, X, k_hint=8, device="cpu").numpy()
+assert golden.rel_err(Y, golden.spmm_golden(a, X)) < 2e-5
+bad = [m for m in sys.modules
+       if m in ("jax", "triton", "sblas") or m.startswith(("jax.", "sblas."))]
 print("LEAKED", bad)
 """
 
@@ -33,30 +37,41 @@ def test_import_and_spmv_without_jax():
     assert "LEAKED []" in out.stdout, out.stdout
 
 
-def test_host_layer_is_reused():
+def test_host_layer_is_the_ports_own():
     import sblas
     import sblas_torch
 
-    assert sblas_torch.CSR is sblas.CSR and sblas_torch.CSC is sblas.CSC
-    assert sblas_torch.datasets is sblas.datasets
-    # the goldens themselves; sblas_torch.golden adds the port's limits
-    for name in ("spmv_golden", "rel_err", "default_tol"):
-        assert getattr(sblas_torch.golden, name) is getattr(sblas.golden, name)
+    assert sblas_torch.CSR is not sblas.CSR
+    assert sblas_torch.CSC is not sblas.CSC
+    assert sblas_torch.CSR.__module__ == "sblas_torch.formats"
+    for mod in ("datasets", "golden", "retile", "retile_bsr"):
+        assert getattr(sblas_torch, mod).__name__ == f"sblas_torch.{mod}"
+    assert sblas_torch.golden.spmv_golden is not sblas.golden.spmv_golden
+    assert sblas_torch.read_mtx.__module__ == "sblas_torch.io"
 
 
 def test_lazy_entry_points():
     import sblas_torch
+    from sblas_torch.ops import spmm as spmm_mod
     from sblas_torch.ops import spmv as spmv_mod
 
     assert sblas_torch.spmv is spmv_mod.spmv
     assert sblas_torch.SpmvPlan is spmv_mod.SpmvPlan
+    assert sblas_torch.spmm is spmm_mod.spmm
+    assert sblas_torch.SpmmPlan is spmm_mod.SpmmPlan
 
 
 def test_default_device_and_probe():
+    import pytest
     from sblas_torch.utils.backend import default_device, probe
 
     cuda = torch.cuda.is_available()
-    assert default_device().type == ("cuda" if cuda else "cpu")
+    if cuda:
+        assert default_device().type == "cuda"
+    else:
+        # the card is the default; the CPU only when a caller asks for it
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            default_device()
     p = probe()
     assert p["cuda"] is cuda
     assert p["torch"] == torch.__version__

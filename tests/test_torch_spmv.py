@@ -2,9 +2,12 @@
 
 Inputs come from ``np.random.default_rng`` as explicit float32/float64
 arrays (conftest turns on ``jax_enable_x64``, so a numpy default would
-promote the reference to f64). The reference's Pallas route runs in
-interpret mode on the CPU, as its own tests run it, with ``min_fill=0.0`` so
-that it takes the small test matrices. Tolerances:
+promote the reference to f64). Matrices are built once, with the JAX
+package's generators, and reach the port through
+``sblas_torch.from_reference``, which reads the same arrays. The
+reference's Pallas route runs in interpret mode on the CPU, as its own
+tests run it, with ``min_fill=0.0`` so that it takes the small test
+matrices. Tolerances:
 
 - port vs reference, f32 values: 2e-5 (``default_tol(f32)``; the two sum
   each row in another order);
@@ -23,11 +26,11 @@ import pytest
 import torch
 
 from sblas import datasets
-from sblas.formats import CSR, csr_transpose
+from sblas.formats import csr_transpose
 from sblas.golden import default_tol, rel_err, spmv_golden
 from sblas.ops.spmv import SpmvPlan as RefPlan
 from sblas.ops.spmv import spmv as ref_spmv
-from sblas_torch.formats import to_device
+from sblas_torch.formats import CSR, from_reference, to_device
 from sblas_torch.golden import KERNEL_TOL, value_tol
 from sblas_torch.ops.common import as_csr
 from sblas_torch.ops.kernels.spmv_csr import (GROUPS, group_size, prepare,
@@ -51,6 +54,11 @@ def _vec(n, seed, dtype=np.float32):
     return np.random.default_rng(seed).standard_normal(n).astype(dtype)
 
 
+def _p(a):
+    """The port's matrix holding the reference matrix's arrays."""
+    return from_reference(a)
+
+
 def _np(y):
     return y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
 
@@ -64,7 +72,7 @@ def test_routes_vs_reference(method, name, dtype):
     a = MATRICES[name](dtype)
     x = _vec(a.shape[1], 7, dtype)
     y0 = _vec(a.shape[0], 8, dtype)
-    port = _np(SpmvPlan(a, method, device="cpu")(x, 2.5, -0.5, y0))
+    port = _np(SpmvPlan(_p(a), method, device="cpu")(x, 2.5, -0.5, y0))
     ref = np.asarray(RefPlan(a, method)(x, 2.5, -0.5, y0))
     tol = default_tol(dtype)
     assert port.dtype == ref.dtype == dtype
@@ -75,7 +83,7 @@ def test_routes_vs_reference(method, name, dtype):
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_f64_auto_picks_the_reference_route(name):
     a = MATRICES[name](np.float64)
-    plan = SpmvPlan(a, device="cpu")
+    plan = SpmvPlan(_p(a), device="cpu")
     assert plan.method == RefPlan(a, "auto").method
     assert plan.method in plan.route_reason
 
@@ -93,7 +101,7 @@ def test_csr_vs_reference_pallas(name, vdt, case):
     x = _vec(op.shape[1], 11)
     y0 = _vec(op.shape[0], 12)
     args = (2.5, -0.5, y0) if case == "axpby" else ()
-    port = _np(spmv(src, x, *args, trans=trans, method="csr",
+    port = _np(spmv(_p(src), x, *args, trans=trans, method="csr",
                     value_dtype=port_vd, device="cpu"))
     ref = np.asarray(ref_spmv(src, x, *args, trans=trans, method="pallas",
                               value_dtype=ref_vd, min_fill=0.0))
@@ -110,9 +118,10 @@ def test_slice_auto_vs_reference_pallas():
     a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
     x = _vec(a.shape[1], 21)
     y0 = _vec(a.shape[0], 22)
-    port = spmv(a, x, alpha=2.5, beta=-0.5, y=y0, method="auto",
+    pa = _p(a)
+    port = spmv(pa, x, alpha=2.5, beta=-0.5, y=y0, method="auto",
                 device="cpu")
-    plan = _PLAN_CACHE[a][("spmv", "auto", (("device", "cpu"),))]
+    plan = _PLAN_CACHE[pa][("spmv", "auto", (("device", "cpu"),))]
     assert plan.method == "csr" and "csr" in plan.route_reason
     ref = np.asarray(ref_spmv(a, x, alpha=2.5, beta=-0.5, y=y0,
                               method="pallas", min_fill=0.0))
@@ -127,7 +136,7 @@ def test_beta_requires_y(method):
     a = datasets.random_csr(8, 8, 2, seed=0)
     x = np.ones(8, np.float32)
     with pytest.raises(ValueError, match="beta"):
-        SpmvPlan(a, method, device="cpu")(x, beta=1.0)
+        SpmvPlan(_p(a), method, device="cpu")(x, beta=1.0)
     ref_method = "pallas" if method == "csr" else method
     with pytest.raises(ValueError):
         RefPlan(a, ref_method, min_fill=0.0)(x, beta=1.0)
@@ -137,7 +146,7 @@ def test_beta_requires_y(method):
 def test_x_shape_check(method):
     a = datasets.random_csr(8, 10, 2, seed=0)
     with pytest.raises(ValueError, match="shape"):
-        SpmvPlan(a, method, device="cpu")(np.ones(9, np.float32))
+        SpmvPlan(_p(a), method, device="cpu")(np.ones(9, np.float32))
     with pytest.raises(ValueError):
         RefPlan(a, "coo")(np.ones(9, np.float32))
 
@@ -146,13 +155,13 @@ def test_x_shape_check(method):
 def test_not_ported_methods_raise(method):
     a = datasets.random_csr(8, 8, 2, seed=0)
     with pytest.raises(NotImplementedError, match=method):
-        SpmvPlan(a, method, device="cpu")
+        SpmvPlan(_p(a), method, device="cpu")
 
 
 def test_unknown_method():
     a = datasets.random_csr(8, 8, 2, seed=0)
     with pytest.raises(ValueError, match="nope"):
-        SpmvPlan(a, "nope", device="cpu")
+        SpmvPlan(_p(a), "nope", device="cpu")
     with pytest.raises(ValueError):
         RefPlan(a, "nope")
 
@@ -160,7 +169,7 @@ def test_unknown_method():
 def test_csr_rejects_f64_like_the_pallas_route():
     a = datasets.random_csr(64, 64, 4, seed=8, dtype=np.float64)
     with pytest.raises(ValueError, match="f32"):
-        SpmvPlan(a, "csr", device="cpu")
+        SpmvPlan(_p(a), "csr", device="cpu")
     with pytest.raises(ValueError):
         RefPlan(a, "pallas")
 
@@ -180,7 +189,7 @@ def test_to_device_refuses_int32_overflow():
 
 
 def test_to_device_refuses_complex_and_other_value_dtypes():
-    a = datasets.random_csr(8, 8, 2, seed=0)
+    a = _p(datasets.random_csr(8, 8, 2, seed=0))
     c = CSR(a.shape, a.indptr, a.indices, a.data.astype(np.complex64))
     with pytest.raises(ValueError, match="complex"):
         to_device(c, "cpu")
@@ -191,7 +200,7 @@ def test_to_device_refuses_complex_and_other_value_dtypes():
 
 
 def test_to_device_layout_and_bf16_rounding():
-    a = datasets.random_csr(50, 40, 5, seed=3)
+    a = _p(datasets.random_csr(50, 40, 5, seed=3))
     t = to_device(a, "cpu", torch.bfloat16)
     assert t["shape"] == (50, 40)
     assert t["indptr"].dtype == t["indices"].dtype == torch.int32
@@ -204,7 +213,7 @@ def test_to_device_layout_and_bf16_rounding():
 
 
 def test_wrapper_checks_its_inputs():
-    a = datasets.random_csr(20, 30, 3, seed=1)
+    a = _p(datasets.random_csr(20, 30, 3, seed=1))
     raw = to_device(a, "cpu")
     t = prepare(raw)
     x = torch.from_numpy(_vec(30, 1))
@@ -240,7 +249,7 @@ def test_empty_rows_and_no_entries():
     t = prepare(to_device(e, "cpu"))
     assert torch.equal(spmv_csr(t, x), torch.zeros(5))
     assert torch.equal(spmv_csr(t, x, 2.0, -0.5, y), -0.5 * y)
-    a = datasets.random_csr(100, 90, 2, seed=4)
+    a = _p(datasets.random_csr(100, 90, 2, seed=4))
     empty_rows = np.flatnonzero(a.row_lengths == 0)
     xa, ya = torch.from_numpy(_vec(90, 5)), torch.from_numpy(_vec(100, 6))
     out = spmv_csr(prepare(to_device(a, "cpu")), xa, 1.5, 0.25, ya)
@@ -252,15 +261,18 @@ def test_empty_rows_and_no_entries():
 
 
 def test_group_size_follows_mean_row_length():
-    assert group_size(62451, 3637188) == 32          # cant, 58 nnz/row
-    assert group_size(1_000_000, 109_900_000) == 32  # capped at a warp
-    assert group_size(300, 3858) == 16
-    assert group_size(100, 237) == 4
+    # the group_sweep's fastest width at 58 and 110 nnz/row (PERF.md)
+    assert group_size(62451, 3637188) == 8           # cant, 58 nnz/row
+    assert group_size(1_000_000, 109_900_000) == 8   # fem-band, capped
+    assert group_size(100, 3300) == 8                # 33 nnz/row
+    assert group_size(100, 3200) == 4                # 32: 8 per lane
+    assert group_size(300, 3858) == 2                # 12.9 nnz/row
+    assert group_size(100, 237) == 2
     assert group_size(0, 0) == 2 and group_size(5, 0) == 2
 
 
 def test_csr_bytes_model():
-    a = datasets.banded(300, 5)
+    a = _p(datasets.banded(300, 5))
     m, n = a.shape
     f32 = SpmvPlan(a, "csr", device="cpu")
     bf16 = SpmvPlan(a, "csr", value_dtype="bfloat16", device="cpu")
@@ -269,7 +281,7 @@ def test_csr_bytes_model():
 
 
 def test_plan_cache_is_weak_and_derived_matrices_are_reused():
-    a = datasets.random_csr(64, 64, 4, seed=9)
+    a = _p(datasets.random_csr(64, 64, 4, seed=9))
     x = _vec(64, 1)
     y1 = spmv(a, x, trans=True, device="cpu")
     y2 = spmv(a, x, trans=True, device="cpu")
@@ -285,7 +297,7 @@ def test_plan_cache_is_weak_and_derived_matrices_are_reused():
 
 
 def test_plain_reference_matches_scipy():
-    a = datasets.random_csr(400, 400, 12, skew=1.2, seed=3)
+    a = _p(datasets.random_csr(400, 400, 12, skew=1.2, seed=3))
     x, y = _vec(400, 1), _vec(400, 2)
     t = to_device(a, "cpu")
     out = spmv_csr_reference(t, torch.from_numpy(x), 2.5, -0.5,
@@ -294,7 +306,7 @@ def test_plain_reference_matches_scipy():
 
 
 def test_plan_prepares_the_operand_once():
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
+    a = _p(datasets.emulate("cant", scale=0.05, dtype=np.float32))
     plan = SpmvPlan(a, "csr", device="cpu")
     op = plan._op
     assert op["group"] == group_size(a.shape[0], a.nnz)
@@ -309,7 +321,7 @@ def test_plan_prepares_the_operand_once():
 def test_group_override_keeps_the_result(group):
     # on the CPU the width changes nothing: the operand carries it to the
     # launch only
-    a = datasets.random_csr(200, 150, 9, seed=12)
+    a = _p(datasets.random_csr(200, 150, 9, seed=12))
     op = prepare(to_device(a, "cpu"))
     x = torch.from_numpy(_vec(150, 1))
     y = torch.from_numpy(_vec(200, 2))
