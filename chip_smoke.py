@@ -9,17 +9,21 @@ main paths a user calls, each with every kernel launch count set to 0 just
 before it and read just after:
 
 - SpMV (``sblas_torch.spmv``, ``method="auto"``, f32 ``y = alpha A x +
-  beta y``) on the emulated SuiteSparse ``cant`` at full size and on a
-  1M-row FEM band matrix with 110M nonzeros, through the ``csr`` kernel;
+  beta y``, bf16 values, ``trans``) on the emulated SuiteSparse ``cant`` at
+  full size, a 1M-row FEM band matrix with 110M nonzeros, and the web
+  graphs ``uk-2002`` at 5% and ``twitter7`` at 2% scale (BASELINE.json
+  config 5); and ``method="rcm"`` on a band matrix with scrambled numbering;
 - SpMM (``sblas_torch.spmm``, ``method="auto"``, ``Y = alpha A X + beta
   Y``) on full-size ``cant``, ``consph`` and ``pdb1HYS`` at K = 8 and 32,
-  which the bytes rule sends to the dense-block kernel, and on the FEM band
-  at K = 8, which it sends to K passes of the ``csr`` kernel;
+  the FEM band at K = 8 and both graphs at K = 8 and 32;
 
-checks every result against scipy, times each kernel beside its plain
-version, its bound, cuSPARSE and a STREAM triad, times the SpMM routes
-against each other, and times the SpMV kernel at every lanes-per-row width
-it takes (each width checked first). It imports only the port.
+checks every result against scipy, and fails where the route the rule
+picked launched no kernel. It times each kernel beside its plain version,
+its bound (bytes at the card's data-sheet memory rate, or flops at its fp32
+rate), cuSPARSE and a STREAM triad, times the routes of each matrix
+against each other (``rule_picked``, ``faster_route``), and times the SpMV
+csr kernel at every lanes-per-row width it takes (each width checked
+first). It imports only the port.
 
 Output: one JSON line per phase; a ``{"kernels": [...]}`` line; the card's
 ``name, power.limit`` as nvidia-smi prints it; and last
@@ -36,7 +40,12 @@ import time
 import numpy as np
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -53,15 +62,19 @@ def main() -> int:
     from sblas_torch.bench_lib import EPS, bench_spmm, bench_spmv
     from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
                                     spmv_golden, value_tol)
-    from sblas_torch.ops.common import as_csr
+    from sblas_torch.ops.common import as_csr, relabeled
     from sblas_torch.ops.kernels import _build
     from sblas_torch.ops.kernels import spmm_bsr as bkern
+    from sblas_torch.ops.kernels import spmm_csr as ckern
     from sblas_torch.ops.kernels import spmv_csr as kern
+    from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmm import _get_plan as spmm_plan
-    from sblas_torch.ops.spmv import _get_plan
+    from sblas_torch.ops.spmv import _get_plan, csr_stream_bytes
     from sblas_torch.retile_bsr import pack_bsr
     from sblas_torch.utils.backend import probe
-    from sblas_torch.utils.timing import FP32_FLOPS, measure_seconds_per_iter
+    from sblas_torch.utils.timing import (FP32_FLOPS, HBM_BYTES_PER_S,
+                                          measure_seconds_per_iter,
+                                          stream_bandwidth)
 
     # the plain versions' products (torch.bmm) in full f32, stated
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -70,6 +83,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     f32_tol = value_tol(torch.float32)
     t_start = time.perf_counter()
+    kernels = {"spmv_csr": kern, "spmm_bsr": bkern, "spmm_csr": ckern}
 
     def vec(*shape):
         return rng.standard_normal(shape).astype(np.float32)
@@ -106,6 +120,14 @@ def main() -> int:
     fem = datasets.random_csr(1_000_000, 1_000_000, 112, bandwidth=1500,
                               seed=7, dtype=np.float32)
     fem_gen_s = time.perf_counter() - t0
+    # the web graphs of BASELINE.json config 5, at the scales
+    # benchmarks/run_suite.py runs them
+    graphs, graph_gen_s = {}, {}
+    for name, scale in (("uk-2002@0.05", 0.05), ("twitter7@0.02", 0.02)):
+        t0 = time.perf_counter()
+        graphs[name] = datasets.emulate(name.split("@")[0], scale=scale,
+                                        dtype=np.float32)
+        graph_gen_s[name] = time.perf_counter() - t0
     empty = sblas_torch.CSR((5, 7), np.zeros(6, np.int32),
                             np.zeros(0, np.int32), np.zeros(0, np.float32))
     cases = {
@@ -117,7 +139,7 @@ def main() -> int:
         "cant": cant,
         "fem-band-1M-112M": fem,
     }
-    max_abs = {"spmv_csr": 0.0, "spmm_bsr": 0.0}
+    max_abs = {name: 0.0 for name in kernels}
 
     def check_plain(kernel, label, got, want):
         torch.cuda.synchronize()
@@ -192,117 +214,223 @@ def main() -> int:
               "pack_bsr_s": pack_s, "tol": KERNEL_TOL,
               "max_rel_err": max(errs.values()), "cases": len(errs)})
 
-    # 5. the SpMV main path, through the user's entry point -------------
+    # 4b. the nnz-balanced kernel vs its plain version on the card ------
+    long_rows = sblas_torch.COO(
+        (400, 30000),
+        np.concatenate([np.zeros(21000), np.full(24000, 9),
+                        rng.integers(0, 300, 3000)]),
+        np.concatenate([rng.permutation(30000)[:21000],
+                        rng.permutation(30000)[:24000],
+                        rng.integers(0, 30000, 3000)]),
+        vec(48000)).tocsr()
+    csr_cases = {
+        "banded(300,5)": datasets.banded(300, 5),
+        "random_csr(100,90,2)": datasets.random_csr(100, 90, 2, seed=4),
+        "nnz=0 (5x7)": empty,
+        "rows of 21000/24000 nnz, empty rows (400x30000)": long_rows,
+    }
+    t0 = time.perf_counter()
+    for name, a in graphs.items():
+        csr_cases[name] = a
+        csr_cases[f"{name} hub-relabeled"] = relabeled(a)[0]
+    relabel_s = time.perf_counter() - t0
+    # the FEM matrices where the SpMM rule may pick the kernel: at the main
+    # path's K = 8, f32 values (uniform rows, G = 8; ~107k shares on the band)
+    csr_cases["cant"], csr_cases["fem-band-1M-112M"] = cant, fem
+    depth = {"cant": ((torch.float32,), (8,)),
+             "fem-band-1M-112M": ((torch.float32,), (8,))}
+    for name, a in csr_cases.items():
+        m, n = a.shape
+        errs = {}
+        vds, ks = depth.get(name, ((torch.float32, torch.bfloat16),
+                                   (1, 3, 8, 32)))
+        for vd in vds:
+            op = ckern.prepare(sblas_torch.to_device(a, dev, vd))
+            for k in ks:
+                x, y = on_card(vec(n, k)), on_card(vec(m, k))
+                for alpha, beta, yy in ((2.5, -0.5, y), (1.0, 0.0, None)):
+                    label = f"{str(vd)[6:]},K={k},Y={yy is not None}"
+                    errs[label] = check_plain(
+                        "spmm_csr", f"{name} {label}",
+                        ckern.spmm_csr(op, x, alpha, beta, yy),
+                        ckern.spmm_csr_reference(op, x, alpha, beta, yy))
+                del x, y
+            shares, fixups = op["part"].shape[0] - 1, op["fix"].numel()
+            del op
+        emit({"phase": "spmm_csr_vs_plain", "matrix": name, "shape": a.shape,
+              "nnz": a.nnz, "longest_row": int(a.row_lengths.max(initial=0)),
+              "shares": shares, "fixups": fixups, "tol": KERNEL_TOL,
+              "max_rel_err": max(errs.values()), "cases": len(errs)})
+
+    # 5. the main paths, through the user's entry points: the route is the
+    # rule's pick, and each call must launch that route's kernel ---------
+    by_route = {"csr": kern, "rcm": kern, "merge": ckern, "pseg": ckern,
+                "block": bkern}
+
+    def check(res, name, label, call, plan_of, ref, tol):
+        before = {mod: mod.LAUNCHES for mod in kernels.values()}
+        out = call()
+        torch.cuda.synchronize()
+        plan = plan_of()
+        route = plan._spmv.method if plan.method == "spmv_passes" \
+            else plan.method
+        mod = by_route[route]
+        if mod.LAUNCHES == before[mod]:
+            raise RuntimeError(f"{name} {label}: route {plan.method!r} "
+                               f"({plan.route_reason}) launched no kernel")
+        got = out.cpu().numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"{name} {label}: bad output")
+        err = rel_err(got, ref)
+        if not err < tol:
+            raise RuntimeError(f"{name} {label}: rel_err vs scipy {err} "
+                               f">= {tol}")
+        res[label] = {"rel_err": err, "tol": tol, "method": plan.method,
+                      "route_reason": plan.route_reason}
+
     def spmv_main_path(name, a):
         m, n = a.shape
-        x, y0 = vec(n), vec(m)
-        checks = []
-        for label, kw, args, ref, tol in (
-                ("f32", {}, (), spmv_golden(a, x), f32_tol),
-                ("f32 alpha/beta", {}, (2.5, -0.5, y0),
-                 spmv_golden(a, x, 2.5, -0.5, y0), f32_tol),
-                ("bf16 values", {"value_dtype": torch.bfloat16}, (),
-                 spmv_golden(a, x), value_tol(torch.bfloat16))):
-            out = sblas_torch.spmv(a, x, *args, method="auto", **kw)
-            plan = _get_plan(a, "auto", **kw)
-            checks.append((label, plan, out, ref, tol))
-        xt = vec(m)
-        out = sblas_torch.spmv(a, xt, trans=True, method="auto")
-        at = as_csr(a, True)    # the host transpose spmv built and cached
-        checks.append(("f32 trans", _get_plan(at, "auto"), out,
-                       spmv_golden(at, xt), f32_tol))
-        return judge(name, checks, "csr")
-
-    def judge(name, checks, route):
+        x, y0, xt = vec(n), vec(m), vec(m)
+        at = as_csr(a, True)    # the host transpose spmv builds and caches
+        bf16 = {"value_dtype": torch.bfloat16}
         res = {}
-        for label, plan, out, ref, tol in checks:
-            got = out.cpu().numpy()
-            if plan.method != route:
-                raise RuntimeError(f"{name} {label}: auto picked "
-                                   f"{plan.method!r}, not {route!r} "
-                                   f"({plan.route_reason})")
-            if got.shape != ref.shape or not np.isfinite(got).all():
-                raise RuntimeError(f"{name} {label}: bad output")
-            err = rel_err(got, ref)
-            if not err < tol:
-                raise RuntimeError(f"{name} {label}: rel_err vs scipy {err} "
-                                   f">= {tol}")
-            res[label] = {"rel_err": err, "tol": tol, "method": plan.method}
+        check(res, name, "f32", lambda: sblas_torch.spmv(a, x),
+              lambda: _get_plan(a, "auto"), spmv_golden(a, x), f32_tol)
+        check(res, name, "f32 alpha/beta",
+              lambda: sblas_torch.spmv(a, x, 2.5, -0.5, y0, method="auto"),
+              lambda: _get_plan(a, "auto"),
+              spmv_golden(a, x, 2.5, -0.5, y0), f32_tol)
+        check(res, name, "bf16 values",
+              lambda: sblas_torch.spmv(a, x, method="auto", **bf16),
+              lambda: _get_plan(a, "auto", **bf16), spmv_golden(a, x),
+              value_tol(torch.bfloat16))
+        check(res, name, "f32 trans",
+              lambda: sblas_torch.spmv(a, xt, trans=True, method="auto"),
+              lambda: _get_plan(at, "auto"), spmv_golden(at, xt), f32_tol)
         return res
 
-    kern.LAUNCHES = 0
-    bkern.LAUNCHES = 0
-    res_cant = spmv_main_path("cant", cant)
-    res_fem = spmv_main_path("fem-band-1M-112M", fem)
-    torch.cuda.synchronize()
-    spmv_launches = kern.LAUNCHES
-    emit({"phase": "main_path", "path": "spmv", "matrix": "cant",
-          "shape": cant.shape, "nnz": cant.nnz, "checks": res_cant})
-    emit({"phase": "main_path", "path": "spmv", "matrix": "fem-band-1M-112M",
-          "shape": fem.shape, "nnz": fem.nnz, "generate_s": fem_gen_s,
-          "checks": res_fem})
-    if spmv_launches == 0:
-        raise RuntimeError("the SpMV main path never launched the csr kernel")
-    emit({"phase": "launches", "path": "spmv", "spmv_csr": spmv_launches,
-          "spmm_bsr": bkern.LAUNCHES})
-
-    # 6. the SpMM main path, through the user's entry point -------------
-    def spmm_main_path(name, a, k, route, extra_checks):
+    def spmm_main_path(name, a, k, extra_checks, method="auto"):
         m, n = a.shape
         x, y0 = vec(n, k), vec(m, k)
+        kw = {"method": method, "k_hint": k}
+        bf16 = {**kw, "value_dtype": torch.bfloat16}
+        res = {}
         t0 = time.perf_counter()
-        out = sblas_torch.spmm(a, x, 2.5, -0.5, y0, method="auto", k_hint=k)
-        plan_s = time.perf_counter() - t0
-        checks = [("f32 alpha/beta", spmm_plan(a, "auto", k_hint=k), out,
-                   spmm_golden(a, x, 2.5, -0.5, y0), f32_tol)]
+        check(res, name, "f32 alpha/beta",
+              lambda: sblas_torch.spmm(a, x, 2.5, -0.5, y0, **kw),
+              lambda: spmm_plan(a, method, k_hint=k),
+              spmm_golden(a, x, 2.5, -0.5, y0), f32_tol)
+        first_s = time.perf_counter() - t0
         if "bf16" in extra_checks:
-            out = sblas_torch.spmm(a, x, method="auto", k_hint=k,
-                                   value_dtype=torch.bfloat16)
-            checks.append(("bf16 values", spmm_plan(
-                a, "auto", k_hint=k, value_dtype=torch.bfloat16), out,
-                spmm_golden(a, x), value_tol(torch.bfloat16)))
+            check(res, name, "bf16 values",
+                  lambda: sblas_torch.spmm(a, x, **bf16),
+                  lambda: spmm_plan(a, method, k_hint=k,
+                                    value_dtype=torch.bfloat16),
+                  spmm_golden(a, x), value_tol(torch.bfloat16))
         if "trans" in extra_checks:
             xt = vec(m, k)
-            out = sblas_torch.spmm(a, xt, trans=True, method="auto",
-                                   k_hint=k)
             at = as_csr(a, True)
-            checks.append(("f32 trans", spmm_plan(at, "auto", k_hint=k), out,
-                           spmm_golden(at, xt), f32_tol))
-        res = judge(f"{name} K={k}", checks, route)
-        plan = checks[0][1]
+            check(res, name, "f32 trans",
+                  lambda: sblas_torch.spmm(a, xt, trans=True, **kw),
+                  lambda: spmm_plan(at, method, k_hint=k),
+                  spmm_golden(at, xt), f32_tol)
         emit({"phase": "main_path", "path": "spmm", "matrix": name, "k": k,
-              "nnz": a.nnz, "route_reason": plan.route_reason,
-              "first_call_s": plan_s, "checks": res})
+              "method": method, "nnz": a.nnz, "first_call_s": first_s,
+              "checks": res})
 
-    kern.LAUNCHES = 0
-    bkern.LAUNCHES = 0
+    def reset():
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {name: mod.LAUNCHES for name, mod in kernels.items()}
+
+    # a band matrix with scrambled numbering: what rcm is for
+    base = datasets.random_csr(100_000, 100_000, 40, bandwidth=60, seed=21,
+                               dtype=np.float32)
+    perm = np.random.default_rng(22).permutation(100_000)
+    scrambled = sblas_torch.CSR.from_scipy(
+        base.to_scipy().tocsr()[perm][:, perm])
+    spmv_mats = {"cant": cant, "fem-band-1M-112M": fem, **graphs}
+
+    reset()
+    for name, a in spmv_mats.items():
+        t0 = time.perf_counter()
+        res = spmv_main_path(name, a)
+        emit({"phase": "main_path", "path": "spmv", "matrix": name,
+              "shape": a.shape, "nnz": a.nnz,
+              "longest_row": int(a.row_lengths.max(initial=0)),
+              "seconds": time.perf_counter() - t0, "checks": res})
+    res = {}
+    xs = vec(100_000)
+    check(res, "scrambled band", "rcm f32",
+          lambda: sblas_torch.spmv(scrambled, xs, method="rcm"),
+          lambda: _get_plan(scrambled, "rcm"), spmv_golden(scrambled, xs),
+          f32_tol)
+    emit({"phase": "main_path", "path": "spmv",
+          "matrix": "random_csr(100000,100000,40,bandwidth=60) scrambled",
+          "nnz": scrambled.nnz, "checks": res})
+    spmv_launches = counts()
+    emit({"phase": "launches", "path": "spmv", **spmv_launches})
+    for kname in ("spmv_csr", "spmm_csr"):
+        if spmv_launches[kname] == 0:
+            raise RuntimeError(f"the SpMV main path never launched {kname}")
+
+    reset()
     for name, a in fem_suite.items():
         for k in (8, 32):
-            spmm_main_path(name, a, k, "block",
-                           {"bf16"} | ({"trans"} if name == "cant" else set()))
-    torch.cuda.synchronize()
-    block_launches, csr_launches_before_passes = bkern.LAUNCHES, kern.LAUNCHES
-    spmm_main_path("fem-band-1M-112M", fem, 8, "spmv_passes", set())
-    torch.cuda.synchronize()
-    spmm_launches = {"spmm_bsr": bkern.LAUNCHES, "spmv_csr": kern.LAUNCHES}
-    emit({"phase": "launches", "path": "spmm", **spmm_launches,
-          "spmv_csr_in_spmv_passes": kern.LAUNCHES - csr_launches_before_passes})
-    if block_launches == 0:
-        raise RuntimeError("the SpMM main path never launched the block kernel")
-    if kern.LAUNCHES == csr_launches_before_passes:
-        raise RuntimeError("spmv_passes never launched the csr kernel")
+            spmm_main_path(name, a, k, {"bf16"} | (
+                {"trans"} if name == "cant" else set()))
+    spmm_main_path("fem-band-1M-112M", fem, 8, set())
+    for name, a in graphs.items():
+        for k in (8, 32):
+            spmm_main_path(name, a, k, {"bf16"})
+    spmm_launches = counts()
+    emit({"phase": "launches", "path": "spmm", **spmm_launches})
+    for kname in ("spmm_bsr", "spmm_csr"):
+        if spmm_launches[kname] == 0:
+            raise RuntimeError(f"the SpMM main path never launched {kname}")
+    launches = {name: spmv_launches[name] + spmm_launches[name]
+                for name in kernels}
+    # the dense-block route by name, whichever route the rule picked above
+    # (outside the main path's launch window)
+    for name, a in fem_suite.items():
+        spmm_main_path(name, a, 8, set(), method="block")
 
-    # 7. SpMV timing ----------------------------------------------------
+    # 6. SpMV timing: the csr kernel, the nnz-balanced one, their plain
+    # versions, cuSPARSE and the bound ------------------------------------
+    def bound_us(nbytes, flops):
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        flops_s = flops / FP32_FLOPS
+        return max(bytes_s, flops_s) * 1e6, \
+            "bytes" if bytes_s >= flops_s else "operations"
+
+    def us(step, x0, **kw):
+        return 1e6 * measure_seconds_per_iter(step, x0, x0, **kw)
+
+    # the plain versions take tens of ms on the graphs: fewer iterations
+    few = {"iters_lo": 2, "iters_hi": 6, "repeats": 1}
+
+    def x_gather_fit(a, k, merge_us):
+        """The share of the X bytes the merge route gathers (K floats a
+        nonzero) that its time pays at the STREAM rate beyond its CSR
+        stream, X in and Y in and out: the SpMM rule's X_GATHER."""
+        m, n = a.shape
+        rest = csr_stream_bytes(m, a.nnz, 4) + (n + 2 * m) * k * 4
+        return (merge_us * 1e-6 * stream_bandwidth(dev) * 1e9 - rest) / \
+            (a.nnz * k * 4)
+
     timings = {}
     for name, a in (("cant", cant), ("fem-band-1M-112M", fem)):
-        rec = bench_spmv(a, method="auto", ratio_pairs=5, device=dev)
-        rec16 = bench_spmv(a, method="auto", value_dtype=torch.bfloat16,
+        rec = bench_spmv(a, method="csr", ratio_pairs=5, device=dev)
+        rec16 = bench_spmv(a, method="csr", value_dtype=torch.bfloat16,
                            device=dev, baseline=False)
+        merge = bench_spmv(a, method="merge", device=dev, baseline=False)
         t = sblas_torch.to_device(a, dev)
         x0 = on_card(vec(a.shape[1]))
-        plain = measure_seconds_per_iter(
-            lambda x, x0: kern.spmv_csr_reference(t, x, EPS, 1.0, x0),
-            x0, x0)
+        plain = us(lambda x, x0: kern.spmv_csr_reference(t, x, EPS, 1.0, x0),
+                   x0)
         # what an eager caller of the entry point waits per call, host
         # Python included (the graph-timed numbers above leave it out)
         sblas_torch.spmv(a, x0)
@@ -312,99 +440,189 @@ def main() -> int:
             sblas_torch.spmv(a, x0)
         torch.cuda.synchronize()
         eager = (time.perf_counter() - t0) / 200
-        bound = max(rec.bytes / (rec.extra["stream_gbps"] * 1e9),
-                    rec.flops / FP32_FLOPS)
-        timings[name] = {"kernel_us": rec.seconds_per_iter * 1e6,
-                         "plain_us": plain * 1e6, "bound_us": bound * 1e6,
+        bound = max(rec.bytes / HBM_BYTES_PER_S, rec.flops / FP32_FLOPS)
+        kernel_us, merge_us = rec.seconds_per_iter * 1e6, \
+            merge.seconds_per_iter * 1e6
+        timings[name] = {"kernel_us": kernel_us, "plain_us": plain,
+                         "bound_us": bound * 1e6,
                          "cusparse_us": rec.extra["baseline_us"]}
         emit({"phase": "timing", "kernel": "spmv_csr", "matrix": name,
               "card": card,
-              "kernel_us": rec.seconds_per_iter * 1e6, "kernel_gbps": rec.gbps,
+              "kernel_us": kernel_us, "kernel_gbps": rec.gbps,
               "pct_stream": rec.extra["pct_stream"],
               "stream_gbps": rec.extra["stream_gbps"],
               "bytes_per_iter": rec.bytes, "bound_us": bound * 1e6,
-              "plain_us": plain * 1e6,
+              "plain_us": plain,
               "eager_spmv_us_per_call": eager * 1e6,
               "cusparse_us": rec.extra["baseline_us"],
               "kernel_bf16_us": rec16.seconds_per_iter * 1e6,
               "kernel_bf16_gbps": rec16.gbps,
+              "merge_us": merge_us,
+              "rule_picked": _get_plan(a, "auto").method,
+              "faster_route": "csr" if kernel_us <= merge_us else "merge",
               "rel_err": rec.extra["rel_err"],
               "ratio_pairs": rec.extra["ratio_pairs"]})
         del t, x0
 
-    # 8. SpMM timing: the block kernel, its plain version, cuSPARSE and the
-    # other route, at the main path's shapes ----------------------------
+    # 6b. the graphs: the nnz-balanced kernel in natural order (the merge
+    # route auto runs) and hub-relabeled (the pseg operand), its plain
+    # version, cuSPARSE, the bound and every route, at K = 1, 8, 32 -------
+    def route_us(a, k, routes):
+        """Graph-timed us of each SpMM route through its plan, each first
+        checked against one scipy golden of the same X."""
+        x_np = vec(a.shape[1], k)
+        want = spmm_golden(a, x_np)
+        x0 = on_card(x_np)
+        out = {}
+        for r in routes:
+            plan = spmm_plan(a, r, k_hint=k)
+            err = rel_err(plan(x0).cpu().numpy(), want)
+            if not err < f32_tol:
+                raise RuntimeError(f"{r} on K={k}: rel_err {err}")
+            out[r] = us(lambda x, x0, plan=plan: plan(x, EPS, 1.0, x0), x0)
+        return out
+
+    graph_timings = {}
+    for name, a in graphs.items():
+        m, n = a.shape
+        ap = relabeled(a)[0]
+        nat = ckern.prepare(sblas_torch.to_device(a, dev))
+        rel = ckern.prepare(sblas_torch.to_device(ap, dev))
+        sp = torch.sparse_csr_tensor(
+            on_card(a.indptr), on_card(a.indices), on_card(a.data),
+            size=a.shape)
+        longest = int(a.row_lengths.max(initial=0))
+        for k in (1, 8, 32):
+            x0 = on_card(vec(n, k))
+            row = {
+                "kernel_us": us(lambda x, x0: ckern.spmm_csr(
+                    nat, x, EPS, 1.0, x0), x0),
+                "kernel_relabeled_us": us(lambda x, x0: ckern.spmm_csr(
+                    rel, x, EPS, 1.0, x0), x0),
+                "plain_us": us(lambda x, x0: ckern.spmm_csr_reference(
+                    nat, x, EPS, 1.0, x0), x0, **few)}
+            nbytes = csr_stream_bytes(m, a.nnz, 4) + (n + 2 * m) * k * 4
+            row["bound_us"], row["bound_by"] = bound_us(nbytes,
+                                                        2 * a.nnz * k)
+            if k == 1:
+                v0 = x0.view(-1)
+                row["cusparse_us"] = us(lambda x, x0: torch.addmv(
+                    x0, sp, x, beta=1.0, alpha=EPS), v0)
+                routes = {
+                    r: bench_spmv(a, method=r, device=dev,
+                                  baseline=False).seconds_per_iter * 1e6
+                    for r in ("csr", "merge", "pseg")}
+                # the csr kernel's time per serial step of its longest row
+                # (the SpMV rule's CSR_STEP_NS)
+                row["csr_walk_steps"] = longest / kern.group_size(m, a.nnz)
+                row["csr_ns_per_step"] = 1e3 * routes["csr"] / \
+                    row["csr_walk_steps"]
+                picked = _get_plan(a, "auto").method
+            else:
+                row["cusparse_us"] = us(lambda x, x0: torch.addmm(
+                    x0, sp, x, beta=1.0, alpha=EPS), x0)
+                routes = route_us(a, k, ("merge", "spmv_passes") + (
+                    ("pseg",) if k == 8 else ()))
+                prices = SpmmPlan.prices(a, k)
+                free = torch.cuda.mem_get_info(dev)[0]
+                row["block_stream_mb"] = prices["block_stream"] / 1e6
+                if prices["block_stream"] <= free // 2:
+                    routes.update(route_us(a, k, ("block",)))
+                picked = spmm_plan(a, "auto", k_hint=k).method
+                row["x_gather_fit"] = x_gather_fit(a, k, routes["merge"])
+            graph_timings[(name, k)] = row
+            emit({"phase": "graph_timing", "matrix": name, "k": k,
+                  "card": card, "nnz": a.nnz, "longest_row": longest, **row,
+                  "route_us": routes, "rule_picked": picked,
+                  "faster_route": min(routes, key=routes.get)})
+            del x0
+        del nat, rel, sp
+
+    # 7. SpMM timing on the FEM matrices: the block kernel, its plain
+    # version, cuSPARSE, the bound and the other routes -----------------
     spmm_timings = {}
-    for name, a in fem_suite.items():
-        for k in (8, 32):
-            rec = bench_spmm(a, k, method="auto", ratio_pairs=3, device=dev)
-            if rec.extra["method"] != "block":
-                raise RuntimeError(f"{name} K={k}: auto picked "
-                                   f"{rec.extra['method']!r}")
-            rec16 = bench_spmm(a, k, method="auto",
+    fem_rows = [(name, a, k, 128) for name, a in fem_suite.items()
+                for k in (8, 32)]
+    fem_rows += [(name, fem_suite[name], 8, 64) for name in ("consph",
+                                                             "pdb1HYS")]
+    for name, a, k, br in fem_rows:
+        rec = bench_spmm(a, k, method="block", block_rows=br, ratio_pairs=3,
+                         device=dev)
+        row = {"kernel_us": rec.seconds_per_iter * 1e6,
+               "bound_us": rec.extra["bound_us"],
+               "bound_by": rec.extra["bound_by"],
+               "cusparse_us": rec.extra["baseline_us"]}
+        op = spmm_plan(a, "block", k_hint=k, block_rows=br)._op
+        x0 = on_card(vec(a.shape[1], k))
+        row["plain_us"] = us(lambda x, x0: bkern.spmm_bsr_reference(
+            op, x, EPS, 1.0, x0), x0)
+        del op, x0
+        extra = {}
+        if br == 128:
+            rec16 = bench_spmm(a, k, method="block",
                                value_dtype=torch.bfloat16, device=dev,
                                baseline=False)
-            passes = bench_spmm(a, k, method="spmv_passes", device=dev,
-                                baseline=False)
-            op = spmm_plan(a, "auto", k_hint=k)._op
-            x0 = on_card(vec(a.shape[1], k))
-            plain = measure_seconds_per_iter(
-                lambda x, x0: bkern.spmm_bsr_reference(op, x, EPS, 1.0, x0),
-                x0, x0)
-            kernel_us = rec.seconds_per_iter * 1e6
-            passes_us = passes.seconds_per_iter * 1e6
-            row = {"kernel_us": kernel_us, "plain_us": plain * 1e6,
-                   "bound_us": rec.extra["bound_us"],
-                   "bound_by": rec.extra["bound_by"],
-                   "cusparse_us": rec.extra["baseline_us"]}
-            spmm_timings[(name, k)] = row
-            emit({"phase": "spmm_timing", "matrix": name, "k": k,
-                  "card": card, **row,
-                  "kernel_gflops": rec.gflops, "kernel_gbps": rec.gbps,
-                  "pct_stream": rec.extra["pct_stream"],
-                  "stream_gbps": rec.extra["stream_gbps"],
-                  "bytes_per_iter": rec.bytes,
-                  "kernel_bf16_us": rec16.seconds_per_iter * 1e6,
-                  "kernel_bf16_gbps": rec16.gbps,
-                  "bound_bf16_us": rec16.extra["bound_us"],
-                  "spmv_passes_us": passes_us,
-                  "spmv_passes_bytes": passes.bytes,
-                  "rule_picked": "block",
-                  "faster_route": "block" if kernel_us <= passes_us
-                  else "spmv_passes",
-                  "rel_err": rec.extra["rel_err"],
-                  "route_reason": rec.extra["route_reason"],
-                  "ratio_pairs": rec.extra["ratio_pairs"]})
-            del op, x0
+            routes = {"block": row["kernel_us"]}
+            for r in ("merge", "spmv_passes"):
+                routes[r] = bench_spmm(a, k, method=r, device=dev,
+                                       baseline=False).seconds_per_iter * 1e6
+            extra = {"kernel_bf16_us": rec16.seconds_per_iter * 1e6,
+                     "kernel_bf16_gbps": rec16.gbps,
+                     "bound_bf16_us": rec16.extra["bound_us"],
+                     "route_us": routes,
+                     "rule_picked": spmm_plan(a, "auto", k_hint=k).method,
+                     "faster_route": min(routes, key=routes.get),
+                     "x_gather_fit": x_gather_fit(a, k, routes["merge"])}
+        spmm_timings[(name, k, br)] = row
+        emit({"phase": "spmm_timing", "matrix": name, "k": k,
+              "block_rows": br, "card": card, **row, **extra,
+              "kernel_gflops": rec.gflops, "kernel_gbps": rec.gbps,
+              "pct_stream": rec.extra["pct_stream"],
+              "stream_gbps": rec.extra["stream_gbps"],
+              "bytes_per_iter": rec.bytes, "rel_err": rec.extra["rel_err"],
+              "ratio_pairs": rec.extra["ratio_pairs"]})
+    # the FEM band at K = 8: its blocks (12.8 GB) are priced, not packed
+    routes = {r: bench_spmm(fem, 8, method=r, device=dev,
+                            baseline=False).seconds_per_iter * 1e6
+              for r in ("merge", "spmv_passes")}
+    emit({"phase": "spmm_timing", "matrix": "fem-band-1M-112M", "k": 8,
+          "card": card, "route_us": routes,
+          "block_stream_mb": SpmmPlan.prices(fem, 8)["block_stream"] / 1e6,
+          "rule_picked": spmm_plan(fem, "auto", k_hint=8).method,
+          "faster_route": min(routes, key=routes.get),
+          "x_gather_fit": x_gather_fit(fem, 8, routes["merge"])})
 
-    # 9. lanes-per-row sweep: every width the csr kernel takes, each
-    # checked against the plain version before it is timed --------------
-    for name, a in (("cant", cant), ("fem-band-1M-112M", fem)):
+    # 8. lanes-per-row sweep on cant: every width the csr kernel takes,
+    # each checked against the plain version before it is timed (an earlier
+    # sweep of the FEM band found G = 8 fastest there too) ----------------
+    for name, a in (("cant", cant),):
         x = on_card(vec(a.shape[1]))
         y = on_card(vec(a.shape[0]))
         for vd in (torch.float32, torch.bfloat16):
             op = kern.prepare(sblas_torch.to_device(a, dev, vd))
-            us, errs = {}, {}
+            sweep, errs = {}, {}
             for g in kern.GROUPS:
                 opg = {**op, "group": g}
                 errs[g] = against_plain(f"{name} {vd} G={g}", opg, x, 2.5,
                                         -0.5, y)
-                us[g] = 1e6 * measure_seconds_per_iter(
-                    lambda c, x0: kern.spmv_csr(opg, c, EPS, 1.0, x0), x, x)
+                sweep[g] = us(lambda c, x0: kern.spmv_csr(opg, c, EPS, 1.0,
+                                                          x0), x)
             emit({"phase": "group_sweep", "matrix": name, "card": card,
                   "values": str(vd)[6:], "rule_group": op["group"],
-                  "us": us, "rel_err": errs})
+                  "us": sweep, "rel_err": errs})
             del op
         del x, y
 
-    main = spmm_timings[("consph", 8)]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
-          "suite_generate_s": suite_gen_s})
+          "suite_generate_s": suite_gen_s, "fem_generate_s": fem_gen_s,
+          "graph_generate_s": graph_gen_s, "relabel_s": relabel_s})
+    main = spmm_timings[("consph", 8, 128)]
+    tw = graph_timings[("twitter7@0.02", 8)]
     emit({"kernels": [
         {"name": "spmv_csr", "route": "cuda",
          "source": "sblas_torch/csrc/spmv_csr.cu",
          "replaces": "sblas/ops/kernels/spmv_pallas.py:55",
-         "launches": spmv_launches, "max_abs_err": max_abs["spmv_csr"],
+         "launches": launches["spmv_csr"], "max_abs_err": max_abs["spmv_csr"],
          "ms": timings["cant"]["kernel_us"] / 1e3,
          "plain_ms": timings["cant"]["plain_us"] / 1e3,
          "bound_ms": timings["cant"]["bound_us"] / 1e3, "bound_by": "bytes",
@@ -415,11 +633,22 @@ def main() -> int:
          "replaces": ["sblas/ops/kernels/spmm_bsr_pallas.py:96",
                       "sblas/ops/kernels/spmm_bsr_pallas.py:44",
                       "sblas/ops/kernels/spmm_bsr_pallas.py:481"],
-         "launches": block_launches, "max_abs_err": max_abs["spmm_bsr"],
+         "launches": launches["spmm_bsr"], "max_abs_err": max_abs["spmm_bsr"],
          "ms": main["kernel_us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
          "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
          "library_ms": main["cusparse_us"] / 1e3,
-         "shape": "consph f32 K=8"}]})
+         "shape": "consph f32 K=8"},
+        {"name": "spmm_csr", "route": "cuda",
+         "source": "sblas_torch/csrc/spmm_csr.cu",
+         "replaces": ["sblas/ops/kernels/spmv_pseg.py:37",
+                      "sblas/ops/kernels/spmm_pseg.py:134",
+                      "sblas/ops/kernels/spmm_pseg.py:350",
+                      "sblas/ops/kernels/spmm_pallas.py:30"],
+         "launches": launches["spmm_csr"], "max_abs_err": max_abs["spmm_csr"],
+         "ms": tw["kernel_us"] / 1e3, "plain_ms": tw["plain_us"] / 1e3,
+         "bound_ms": tw["bound_us"] / 1e3, "bound_by": tw["bound_by"],
+         "library_ms": tw["cusparse_us"] / 1e3,
+         "shape": "twitter7@0.02 f32 K=8, natural order (route merge)"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

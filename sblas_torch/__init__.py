@@ -15,7 +15,7 @@ lazily, so ``import sblas_torch`` works on CPU-only torch with no
 (``sblas_torch.ops.kernels._build``).
 """
 
-from . import datasets, golden, retile, retile_bsr
+from . import datasets, golden, relabel, reorder, retile, retile_bsr
 from .formats import (COO, CSC, CSR, coo_to_csc, coo_to_csr, csr_transpose,
                       from_reference, to_device, tril, triu)
 from .io import read_mtx, read_mtx_coo, write_mtx
@@ -26,7 +26,8 @@ __all__ = [
     "COO", "CSR", "CSC",
     "coo_to_csr", "coo_to_csc", "csr_transpose", "tril", "triu",
     "from_reference", "read_mtx", "read_mtx_coo", "write_mtx",
-    "datasets", "golden", "retile", "retile_bsr", "to_device",
+    "datasets", "golden", "relabel", "reorder", "retile", "retile_bsr",
+    "to_device",
     "spmv", "SpmvPlan", "spmm", "SpmmPlan",
 ]
 

@@ -21,8 +21,8 @@ from .formats import CSR, as_torch_dtype
 from .golden import rel_err, spmm_golden, spmv_golden, value_tol
 from .ops.spmm import SpmmPlan
 from .ops.spmv import SpmvPlan
-from .utils.timing import (FP32_FLOPS, BenchRecord, measure_seconds_per_iter,
-                           stream_bandwidth)
+from .utils.timing import (FP32_FLOPS, HBM_BYTES_PER_S, BenchRecord,
+                           measure_seconds_per_iter, stream_bandwidth)
 
 # keeps the carry numerically equal to x0 while each iteration depends on
 # the one before (tiny * y underflows against x0)
@@ -116,9 +116,9 @@ def bench_spmm(a: CSR, k: int = 8, *, method: str = "auto", value_dtype=None,
 
     ``flops`` is the useful work, ``2 nnz k``; ``extra["bound_us"]`` the
     least time the card could take for the plan's work: its bytes over the
-    STREAM triad measured here, or the flops it executes (every stored
-    block entry for the block routes) over the card's fp32 rate
-    (``FP32_FLOPS``), whichever is larger.
+    card's data-sheet memory rate (``HBM_BYTES_PER_S``), or the flops it
+    executes (every stored block entry for the block routes) over its fp32
+    rate (``FP32_FLOPS``), whichever is larger.
     """
     m, n = a.shape
     if m != n:
@@ -135,7 +135,7 @@ def bench_spmm(a: CSR, k: int = 8, *, method: str = "auto", value_dtype=None,
     nbytes = plan.bytes_per_call(k, with_y=True)
     per = _time(lambda x, x0: plan(x, EPS, 1.0, x0), x0, nbytes, dev,
                 ratio_pairs, extra)
-    bytes_s = nbytes / (extra["stream_gbps"] * 1e9)
+    bytes_s = nbytes / HBM_BYTES_PER_S
     flops_s = plan.flops_per_call(k) / FP32_FLOPS
     extra["bound_us"] = max(bytes_s, flops_s) * 1e6
     extra["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"

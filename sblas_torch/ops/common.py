@@ -14,8 +14,9 @@ from __future__ import annotations
 import weakref
 
 from ..formats import CSC, CSR, csr_transpose
+from ..relabel import hub_relabel
 
-# source matrix -> {"csr": CSR of A, "csr_T": CSR of A^T}
+# source matrix -> {"csr": CSR of A, "csr_T": CSR of A^T, "relabel": ...}
 _DERIVED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -42,7 +43,13 @@ def as_csr(a, trans: bool = False) -> CSR:
         "another package with sblas_torch.from_reference(a)")
 
 
-def _derived(src, key: str, build) -> CSR:
+def relabeled(a: CSR):
+    """:func:`~sblas_torch.relabel.hub_relabel` of ``a``, computed once per
+    matrix: the SpMV and SpMM plans of one graph share it."""
+    return _derived(a, "relabel", lambda: hub_relabel(a))
+
+
+def _derived(src, key: str, build):
     cache = _DERIVED.setdefault(src, {})
     if key not in cache:
         cache[key] = build()

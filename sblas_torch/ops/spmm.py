@@ -8,28 +8,44 @@ Routes (``method=``, or ``'auto'``):
                       (``kernels/spmm_bsr.py``) over ``block_rows x 128``
                       blocks: the counterpart of the JAX package's
                       ``'bsr_pallas_t'`` at ``block_rows=128`` (the default)
-                      and of its ``'bsr_pallas'`` at ``block_rows=64``. f32
-                      matrices, values f32 or bf16 (``value_dtype=``). On
-                      CPU tensors its wrapper runs the kernel's plain torch
-                      version.
-- ``'spmv_passes'`` — K launches of the port's SpMV plan (the ``csr``
-                      kernel for f32), one per column of X, as in the JAX
-                      package.
+                      and of its ``'bsr_pallas'`` at ``block_rows=64``.
+- ``'merge'``       — the hand-written CUDA nnz-balanced (merge-path) CSR
+                      kernel (``kernels/spmm_csr.py``), all K columns in one
+                      call, in the matrix's own order.
+- ``'pallas'``      — the ``'merge'`` plan (``method == 'merge'``): the JAX
+                      package's w-SELL ``'pallas'`` is this function in
+                      natural order.
+- ``'pseg'``        — the same kernel on the hub-relabeled matrix
+                      ``A[rowperm][:, colperm]``
+                      (:func:`~sblas_torch.relabel.hub_relabel`), the
+                      counterpart of the JAX package's ``'pseg'``, by name
+                      only. ``colperm``, ``rowperm`` and
+                      :meth:`SpmmPlan.apply_permuted` give the
+                      permuted-space interface; the drop-in call permutes X
+                      and Y around the kernel in torch, and skips that where
+                      the relabeling is the identity. On the H100 the
+                      relabeled order made the kernel no faster (PERF.md).
+- ``'spmv_passes'`` — K launches of the port's SpMV ``auto`` plan, one per
+                      column of X, as in the JAX package.
 - ``'ell'``, ``'bucket'``, ``'bsr'`` — plain torch ports of the JAX
                       package's XLA routes of the same names, any value dtype.
 
-``'pallas'``, ``'pseg'`` and ``'pallas_ds'`` raise ``NotImplementedError``
-until their kernels are ported.
+The kernel routes take f32 matrices, values f32 or bf16 (``value_dtype=``);
+on CPU tensors their wrappers run the kernels' plain torch versions.
+``'pallas_ds'`` raises ``NotImplementedError`` until its kernel is ported.
 
 ``'auto'`` for f32 matrices (values f32 or bf16), on every device, is a
-bytes rule: ``'block'`` when the block stream (:func:`bsr_stats` at
-``block_rows x 128``, in the value dtype, with its index arrays) is at most
-``k_hint`` (default 8) times the bytes of one ``csr`` SpMV
-(:func:`~sblas_torch.ops.spmv.csr_bytes_per_iter`), and, on CUDA, fits in
-half of the free device memory; ``'spmv_passes'`` otherwise. For f64 it is
-the JAX package's XLA heuristic, so that both packages pick the same route.
-The route is fixed when the plan is built: a kernel launch that fails
-raises, and no other route is tried.
+bytes rule over three prices at ``k_hint`` (default 8) columns
+(:meth:`SpmmPlan.prices`), each with X in and Y out: ``'block'`` streams its
+blocks (:func:`bsr_stats` at ``block_rows x 128``, in the value dtype, with
+their index arrays) once; ``'merge'`` streams the CSR matrix once and
+gathers ``K`` floats of X a nonzero, of which the share ``X_GATHER`` costs
+device-memory bytes (the rest hits in L2; the constant from H100 timings,
+PERF.md); ``'spmv_passes'`` streams the CSR matrix K times. The cheapest
+wins; ``'block'`` only where, on CUDA, its blocks fit in half of the free
+device memory. For f64 it is the JAX package's XLA heuristic, so that both
+packages pick the same route. The route is fixed when the plan is built: a
+kernel launch that fails raises, and no other route is tried.
 """
 
 from __future__ import annotations
@@ -37,18 +53,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..formats import CSR, as_torch_dtype, check_uploadable, upload
+from ..formats import CSR, as_torch_dtype, check_uploadable, to_device, upload
 from ..retile import to_bucket_ell, to_ell
 from ..retile_bsr import bsr_stats, pack_bsr
 from ..utils.backend import default_device
+from .kernels import spmm_csr
 from .kernels.spmm_bsr import (BLOCK_COLS, BLOCK_ROWS, bsr_to_device, prepare,
                                spmm_bsr, spmm_bsr_reference)
-from .spmv import _PLAN_CACHE, SpmvPlan, csr_bytes_per_iter
+from .spmv import (_PLAN_CACHE, SpmvPlan, csr_bytes_per_iter,
+                   csr_stream_bytes)
 from .spmv import xla_heuristic as spmv_xla_heuristic
 
-ROUTES = ("block", "spmv_passes", "ell", "bucket", "bsr")
-NOT_PORTED = ("pallas", "pseg", "pallas_ds")
+ROUTES = ("block", "merge", "pallas", "pseg", "spmv_passes", "ell",
+          "bucket", "bsr")
+NOT_PORTED = ("pallas_ds",)
 K_HINT = 8
+# what one byte of the X rows the nnz-balanced kernel gathers (K floats a
+# nonzero) costs, in streamed bytes. Its time on the FEM matrices, less its
+# stream, X and Y at the STREAM rate, paid 0.84-1.89 of the gathered bytes
+# (H100, chip_smoke.py's x_gather_fit, PERF.md). At K = 8 any value in
+# 0.97-1.12 sends cant to it (faster than the block route there) and
+# consph and pdb1HYS to the block route (faster there): 1.0
+X_GATHER = 1.0
 # rows x width x K elements of X one ELL chunk gathers at most
 _ELL_CHUNK = 1 << 22
 
@@ -76,7 +102,7 @@ class SpmmPlan:
     def __init__(self, a, method: str = "auto", *, block_rows: int = 128,
                  k_hint: int | None = None, value_dtype=None,
                  max_width: int = 2048, device=None):
-        from .common import as_csr
+        from .common import as_csr, relabeled
 
         a = as_csr(a)
         self.shape = a.shape
@@ -91,6 +117,12 @@ class SpmmPlan:
         elif method in NOT_PORTED:
             raise NotImplementedError(
                 f"spmm method {method!r} is not ported to sblas_torch yet")
+        elif method == "pallas":
+            method = "merge"
+            self.route_reason = (
+                "method='pallas' requested: the 'merge' plan (the JAX "
+                "package's w-SELL route computes the same product in "
+                "natural order)")
         elif method in ROUTES:
             self.route_reason = f"method={method!r} requested"
         else:
@@ -99,6 +131,7 @@ class SpmmPlan:
             raise ValueError(f"unknown spmm method {method!r}{hint}")
         self.method = method
         m, n = a.shape
+        self._perms = None      # pseg: (colperm, rowperm), int64 on the device
 
         if method == "block":
             if a.dtype != np.float32:
@@ -116,13 +149,29 @@ class SpmmPlan:
             self.nblocks, self.density = bsr.nblocks, bsr.density
             self._stream = block_stream_bytes(bsr.nblocks, bsr.num_brows,
                                               block_rows, vd.itemsize)
+        elif method in ("merge", "pseg"):
+            if a.dtype != np.float32:
+                raise ValueError(f"the {method} kernel takes f32 matrices, "
+                                 f"got {a.dtype}; use ell/bucket")
+            vd = check_uploadable(a, value_dtype or torch.float32)
+            if vd not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"value_dtype must be f32 or bf16, got {vd}")
+            ap = a
+            if method == "pseg":
+                ap, self.colperm, self.rowperm = relabeled(a)
+                if ap is not a:     # hub_relabel returns `a` for no hubs
+                    self._perms = (self._up(self.colperm),
+                                   self._up(self.rowperm))
+            # checked once here, with the launch's partition
+            self._op = spmm_csr.prepare(to_device(ap, self.device, vd))
+            self._stream = csr_stream_bytes(m, a.nnz, vd.itemsize)
         elif method == "spmv_passes":
             self._spmv = SpmvPlan(a, "auto", value_dtype=value_dtype,
                                   max_width=max_width, device=self.device)
             # each pass streams the SpMV plan's schedule, less its x and y
             es = self.dtype.itemsize
             self._pass = self._spmv.bytes_per_iter - (
-                (m + n) * es if self._spmv.method == "csr" else 0)
+                (m + n) * es if self._spmv.method in ("csr", "merge") else 0)
         elif method == "ell":
             ell = to_ell(a)
             self._val, self._col = self._up(ell.val), self._up(ell.col)
@@ -143,28 +192,44 @@ class SpmmPlan:
             self._stream = block_stream_bytes(bsr.nblocks, bsr.num_brows,
                                               bsr.br, a.data.itemsize)
 
+    @staticmethod
+    def prices(a: CSR, k: int, block_rows: int = 128,
+               val_bytes: int = 4) -> dict:
+        """Bytes each f32 route moves for ``k`` columns by the rule's model,
+        X in and Y out included: ``{"block", "merge", "spmv_passes"}``, and
+        the block stream alone as ``"block_stream"``."""
+        m, n = a.shape
+        br = block_rows
+        st = bsr_stats(a, br=br, bc=BLOCK_COLS)
+        stream = block_stream_bytes(st["nblocks"], -(-max(m, 1) // br), br,
+                                    val_bytes)
+        xy = (n + m) * k * 4
+        return {"block": stream + xy, "block_stream": stream,
+                "density": st["density"],
+                "merge": csr_stream_bytes(m, a.nnz, val_bytes)
+                + int(X_GATHER * a.nnz * k * 4) + xy,
+                "spmv_passes": k * csr_bytes_per_iter(m, n, a.nnz,
+                                                      val_bytes)}
+
     def _pick(self, a: CSR, value_dtype) -> tuple[str, str]:
         if a.dtype != np.float32:
             method, why = xla_heuristic(a)
             return method, f"auto: {a.dtype} -> {method} ({why})"
         vb = check_uploadable(a, value_dtype or torch.float32).itemsize
-        m, n = a.shape
-        br = self.block_rows
-        st = bsr_stats(a, br=br, bc=BLOCK_COLS)
-        block = block_stream_bytes(st["nblocks"], -(-max(m, 1) // br), br, vb)
-        passes = self.k_hint * csr_bytes_per_iter(m, n, a.nnz, vb)
-        rule = (f"block stream {block / 1e6:.1f} MB (density "
-                f"{st['density']:.3f}) vs k_hint={self.k_hint} csr passes "
-                f"{passes / 1e6:.1f} MB")
-        if block > passes:
-            return "spmv_passes", f"auto: {rule} -> spmv_passes"
-        if self.device.type == "cuda":
+        p = self.prices(a, self.k_hint, self.block_rows, vb)
+        routes = ("block", "merge", "spmv_passes")
+        rule = (f"k_hint={self.k_hint}: " + ", ".join(
+            f"{r} {p[r] / 1e6:.1f} MB" for r in routes)
+            + f" (block density {p['density']:.3f})")
+        method = min(routes, key=lambda r: p[r])
+        if method == "block" and self.device.type == "cuda":
             free = torch.cuda.mem_get_info(self.device)[0]
-            if block > free // 2:
-                return "spmv_passes", (
+            if p["block_stream"] > free // 2:
+                method = min(routes[1:], key=lambda r: p[r])
+                return method, (
                     f"auto: {rule}, but the blocks exceed half of the "
-                    f"{free / 1e6:.0f} MB free -> spmv_passes")
-        return "block", f"auto: {rule} -> block"
+                    f"{free / 1e6:.0f} MB free -> {method}")
+        return method, f"auto: {rule} -> {method}"
 
     def _up(self, arr: np.ndarray) -> torch.Tensor:
         return upload(arr, self.device)
@@ -180,12 +245,16 @@ class SpmmPlan:
     def bytes_per_call(self, k: int, with_y: bool = False) -> int:
         """Bytes one call with ``k`` columns moves by the plan's model: the
         matrix stream (once per column for ``spmv_passes``), X in, Y out, and
-        Y in when ``with_y``."""
+        Y in when ``with_y``; for a relabeled ``pseg`` plan also the
+        permutations around the kernel (X, Y in and Y out each read and
+        written once more, with an int64 index a row)."""
         m, n = self.shape
+        es = self.dtype.itemsize
         stream = k * self._pass if self.method == "spmv_passes" \
             else self._stream
-        return stream + (n + m * (2 if with_y else 1)) * k * \
-            self.dtype.itemsize
+        rows = n + m * (2 if with_y else 1)
+        perms = 0 if self._perms is None else rows * (2 * k * es + 8)
+        return stream + rows * k * es + perms
 
     def flops_per_call(self, k: int) -> int:
         """Multiply-adds times 2 that one call executes: every stored block
@@ -200,6 +269,21 @@ class SpmmPlan:
                 f"device={self.device}, "
                 f"~{self.bytes_per_iter_nx / 1e6:.1f} MB/iter at "
                 f"k={self.k_hint})")
+
+    def apply_permuted(self, x_perm, alpha: float = 1.0, beta: float = 0.0,
+                       y_perm=None):
+        """``pseg``: ``alpha * A_perm @ X_perm + beta * Y_perm`` in the
+        hub-relabeled space (``X_perm = X[colperm]``, result row ``i`` is row
+        ``rowperm[i]`` of A): no permutation around the kernel, the path for
+        iterative callers."""
+        if self.method != "pseg":
+            raise ValueError(f"method {self.method!r} has no permuted space")
+        x_perm = torch.as_tensor(x_perm, dtype=self.dtype,
+                                 device=self.device).contiguous()
+        if y_perm is not None:
+            y_perm = torch.as_tensor(y_perm, dtype=self.dtype,
+                                     device=self.device).contiguous()
+        return spmm_csr.spmm_csr(self._op, x_perm, alpha, beta, y_perm)
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
@@ -219,6 +303,16 @@ class SpmmPlan:
         if self.method == "block":
             return spmm_bsr(self._op, x.contiguous(), alpha, beta,
                             None if y is None else y.contiguous())
+        if self.method in ("merge", "pseg"):
+            if self._perms is None:
+                return spmm_csr.spmm_csr(
+                    self._op, x.contiguous(), alpha, beta,
+                    None if y is None else y.contiguous())
+            cols, rows = self._perms
+            out = spmm_csr.spmm_csr(
+                self._op, x.index_select(0, cols), alpha, beta,
+                None if y is None else y.index_select(0, rows))
+            return torch.empty_like(out).index_copy_(0, rows, out)
         if self.method == "bsr":
             return spmm_bsr_reference(self._op, x, alpha, beta, y)
         if self.method == "spmv_passes":

@@ -2,18 +2,36 @@
 
 Routes (``method=``, or ``'auto'``):
 
-- ``'csr'``    — the hand-written CUDA kernel over plain CSR
-                 (``kernels/spmv_csr.py``), the counterpart of the JAX
-                 package's ``'pallas'`` route. f32 matrices, values f32 or
-                 bf16 (``value_dtype=``). On CPU tensors its wrapper runs the
-                 kernel's plain torch version.
+- ``'csr'``      — the hand-written CUDA csr-vector kernel
+                   (``kernels/spmv_csr.py``), the counterpart of the JAX
+                   package's ``'pallas'`` route: G lanes a row.
+- ``'merge'``    — the hand-written CUDA nnz-balanced (merge-path) kernel
+                   (``kernels/spmm_csr.py``), through the SpMM ``'merge'``
+                   plan at K = 1. It splits long rows across warps, so
+                   power-law graphs keep the card busy.
+- ``'pseg'``     — the SpMM ``'pseg'`` plan at K = 1: the same kernel on the
+                   hub-relabeled matrix ``A[rowperm][:, colperm]``, the
+                   counterpart of the JAX package's ``'pseg'``, by name
+                   only. ``colperm``, ``rowperm`` and :meth:`apply_permuted`
+                   give the permuted-space interface.
+- ``'pseg_big'`` — the same plan as ``'pseg'`` (``method == 'pseg'``).
+- ``'rcm'``      — the ``csr`` kernel on ``P A P^T`` from
+                   :func:`~sblas_torch.reorder.rcm`, with the same
+                   permuted-space interface.
 - ``'coo'``, ``'ell'``, ``'bucket'`` — plain torch ports of the JAX
-                 package's XLA routes of the same names, any value dtype.
+                   package's XLA routes of the same names, any value dtype.
 
-``'auto'`` picks ``'csr'`` for f32 matrices on every device, and for other
-dtypes (f64) the JAX package's ELL/bucket heuristic. The JAX package's
-``'pseg'``, ``'pseg_big'``, ``'rcm'``, ``'bsr'`` and ``'pallas_ds'`` are not
-ported yet and raise ``NotImplementedError``.
+The kernel routes take f32 matrices, values f32 or bf16 (``value_dtype=``);
+on CPU tensors their wrappers run the kernels' plain torch versions.
+
+``'auto'`` for f32 matrices picks between ``'csr'`` and ``'merge'`` by the
+longest row: the csr kernel walks a row of L nonzeros in L / G serial steps
+of its lane group, and when that walk would outlast both the
+nnz-balanced kernel's walk of one share and the whole CSR stream at the
+card's rate, ``'merge'`` (:func:`f32_rule`; its constants from H100
+timings, PERF.md). It never picks ``'pseg'`` or ``'rcm'``. For other
+dtypes (f64) it is the JAX package's ELL/bucket heuristic. The JAX package's ``'bsr'`` and
+``'pallas_ds'`` are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,22 +42,57 @@ import numpy as np
 import torch
 
 from ..formats import CSR, as_torch_dtype, to_device, upload
+from ..reorder import rcm
 from ..retile import to_bucket_ell, to_ell
 from ..utils.backend import default_device
-from .kernels.spmv_csr import prepare, spmv_csr
+from .kernels import spmm_csr, spmv_csr
 
 # plan cache, keyed weakly on the matrix: a plan (and its device tensors)
 # dies with the CSR it was built for
 _PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-ROUTES = ("csr", "coo", "ell", "bucket")
-NOT_PORTED = ("pseg", "pseg_big", "rcm", "bsr", "pallas_ds")
+ROUTES = ("csr", "merge", "pseg", "pseg_big", "rcm", "coo", "ell", "bucket")
+NOT_PORTED = ("bsr", "pallas_ds")
+
+# the csr kernel's time for one serial step of a lane group (its time on a
+# graph over the longest row's steps: 116 ns on uk-2002 at 5%, 152 on
+# twitter7 at 2%), and the card's STREAM triad rate (3037-3042 GB/s): H100
+# timings of chip_smoke.py (PERF.md)
+CSR_STEP_NS = 116.0
+STREAM_GBPS = 3040.0
+
+
+def csr_stream_bytes(m: int, nnz: int, val_bytes: int) -> int:
+    """Bytes of one pass over the CSR matrix: each nonzero's value and
+    int32 column index, and ``indptr``."""
+    return nnz * (val_bytes + 4) + (m + 1) * 4
 
 
 def csr_bytes_per_iter(m: int, n: int, nnz: int, val_bytes: int) -> int:
-    """Bytes one ``csr`` SpMV moves: each nonzero's value and int32 column
-    index, ``indptr``, ``x`` in and ``y`` out (f32)."""
-    return nnz * (val_bytes + 4) + (m + 1) * 4 + n * 4 + m * 4
+    """Bytes one ``csr`` SpMV moves: the CSR stream, ``x`` in and ``y`` out
+    (f32)."""
+    return csr_stream_bytes(m, nnz, val_bytes) + n * 4 + m * 4
+
+
+def f32_rule(a: CSR, val_bytes: int = 4) -> tuple[str, str]:
+    """``'csr'`` or ``'merge'`` for an f32 matrix, with the reason.
+
+    The csr kernel walks its longest row in ``longest / G`` serial steps of
+    one lane group; the nnz-balanced kernel's warps each walk a share of
+    ``spmm_csr.UNIT`` items in about ``UNIT / 32`` steps. ``'merge'`` when
+    the first walk, at ``CSR_STEP_NS`` a step, outlasts both the second and
+    the CSR stream at ``STREAM_GBPS``."""
+    m, n = a.shape
+    longest = int(a.row_lengths.max(initial=0))
+    g = spmv_csr.group_size(m, a.nnz)
+    walk_us = longest / g * CSR_STEP_NS / 1e3
+    share_us = spmm_csr.UNIT / 32 * CSR_STEP_NS / 1e3
+    stream_us = csr_bytes_per_iter(m, n, a.nnz, val_bytes) / STREAM_GBPS / 1e3
+    method = "merge" if walk_us > max(share_us, stream_us) else "csr"
+    return method, (f"longest row {longest} / G={g} lanes walks "
+                    f"{walk_us:.1f} us {'>' if method == 'merge' else '<='} "
+                    f"max(a share's walk {share_us:.1f} us, the CSR stream "
+                    f"{stream_us:.1f} us) -> {method}")
 
 
 def xla_heuristic(a: CSR) -> tuple[str, str]:
@@ -68,14 +121,21 @@ class SpmvPlan:
             else default_device()
         if method == "auto":
             if a.dtype == np.float32:
-                method = "csr"
-                self.route_reason = "auto: f32 values -> csr kernel"
+                vb = as_torch_dtype(value_dtype or torch.float32).itemsize
+                method, why = f32_rule(a, vb)
+                self.route_reason = f"auto: f32 values, {why}"
             else:
                 method, why = xla_heuristic(a)
                 self.route_reason = f"auto: {a.dtype} -> {method} ({why})"
         elif method in NOT_PORTED:
             raise NotImplementedError(
                 f"spmv method {method!r} is not ported to sblas_torch yet")
+        elif method == "pseg_big":
+            method = "pseg"
+            self.route_reason = (
+                "method='pseg_big' requested: the 'pseg' plan (the JAX "
+                "package needed a second executor only for TPU memory "
+                "ceilings; the card's kernel has none)")
         elif method in ROUTES:
             self.route_reason = f"method={method!r} requested"
         else:
@@ -84,16 +144,36 @@ class SpmvPlan:
         m, n = a.shape
         val_bytes = a.data.itemsize
 
-        if method == "csr":
+        if method in ("csr", "merge", "pseg", "rcm"):
             if a.dtype != np.float32:
                 raise ValueError(
-                    f"csr kernel takes f32 matrices, got {a.dtype}; use "
-                    "ell/bucket")
+                    f"the {method} kernel takes f32 matrices, got {a.dtype}; "
+                    "use ell/bucket")
             vd = as_torch_dtype(value_dtype or torch.float32)
             if vd not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"value_dtype must be f32 or bf16, got {vd}")
+        if method in ("merge", "pseg"):
+            # the SpMM plan at K = 1 (spmm imports this module): the
+            # relabeling lives in one place
+            from .spmm import SpmmPlan
+
+            self._mm = SpmmPlan(a, method, value_dtype=vd,
+                                device=self.device)
+            if method == "pseg":
+                self.colperm, self.rowperm = self._mm.colperm, \
+                    self._mm.rowperm
+            self.bytes_per_iter = self._mm.bytes_per_call(1)
+        elif method in ("csr", "rcm"):
+            ap = a
+            if method == "rcm":
+                # x[perm] in, y[perm] in, y_perm[inv] out
+                ap, perm = rcm(a)
+                self.colperm = self.rowperm = perm
+                inv = np.empty_like(perm)
+                inv[perm] = np.arange(m)
+                self._rcm = self._up(perm), self._up(inv)
             # checked once here, with the launch's lanes per row
-            self._op = prepare(to_device(a, self.device, vd))
+            self._op = spmv_csr.prepare(to_device(ap, self.device, vd))
             self.bytes_per_iter = csr_bytes_per_iter(m, n, a.nnz,
                                                      vd.itemsize)
         elif method == "coo":
@@ -126,6 +206,25 @@ class SpmvPlan:
                 f"{fs}, device={self.device}, "
                 f"~{self.bytes_per_iter / 1e6:.1f} MB/iter)")
 
+    def apply_permuted(self, x_perm, alpha: float = 1.0, beta: float = 0.0,
+                       y_perm=None):
+        """``pseg``/``rcm``: ``alpha * A_perm @ x_perm + beta * y_perm`` in
+        the plan's permuted space (``x_perm = x[colperm]``, result row ``i``
+        is row ``rowperm[i]`` of A): no permutation around the kernel, the
+        path for iterative callers."""
+        if self.method not in ("pseg", "rcm"):
+            raise ValueError(f"method {self.method!r} has no permuted space")
+        x_perm = torch.as_tensor(x_perm, dtype=self.dtype,
+                                 device=self.device).contiguous()
+        if y_perm is not None:
+            y_perm = torch.as_tensor(y_perm, dtype=self.dtype,
+                                     device=self.device).contiguous()
+        if self.method == "pseg":
+            return self._mm.apply_permuted(
+                x_perm.view(-1, 1), alpha, beta,
+                None if y_perm is None else y_perm.view(-1, 1)).view(-1)
+        return spmv_csr.spmv_csr(self._op, x_perm, alpha, beta, y_perm)
+
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -133,14 +232,23 @@ class SpmvPlan:
             y = torch.as_tensor(y, dtype=self.dtype, device=self.device)
         if self.method == "csr":
             # the kernel's wrapper checks x and y
-            return spmv_csr(self._op, x.contiguous(), alpha, beta,
-                            None if y is None else y.contiguous())
+            return spmv_csr.spmv_csr(self._op, x.contiguous(), alpha, beta,
+                                     None if y is None else y.contiguous())
         if x.shape != (n,):
             raise ValueError(f"x must have shape ({n},), got {tuple(x.shape)}")
         if beta != 0.0 and y is None:
             raise ValueError("beta != 0 requires y")
         if y is not None and y.shape != (m,):
             raise ValueError(f"y must have shape ({m},), got {tuple(y.shape)}")
+        if self.method in ("merge", "pseg"):
+            return self._mm(x.reshape(-1, 1), alpha, beta,
+                            None if y is None else y.reshape(-1, 1)).view(-1)
+        if self.method == "rcm":
+            perm, inv = self._rcm
+            out = spmv_csr.spmv_csr(
+                self._op, x.index_select(0, perm), alpha, beta,
+                None if y is None else y.index_select(0, perm))
+            return out.index_select(0, inv)
         if self.method == "coo":
             out = torch.zeros(m, dtype=self.dtype, device=self.device)
             out.index_add_(0, self._rows, self._vals * x[self._cols])

@@ -23,6 +23,10 @@ import torch
 # fp32 FLOP/s of one H100 SXM outside the tensor cores (NVIDIA's data
 # sheet, at the full 700 W power limit): the operations side of a bound
 FP32_FLOPS = 67e12
+# device-memory rate of the same card (data sheet, HBM3): the bytes side of
+# a bound. The STREAM triad measured on it (about 3.08 TB/s) is what a
+# kernel can reach, and is reported beside it, never in its place
+HBM_BYTES_PER_S = 3.35e12
 
 
 @dataclasses.dataclass

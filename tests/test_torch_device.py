@@ -18,6 +18,7 @@ from sblas_torch.formats import COO, CSR, to_device
 from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
                                 spmv_golden)
 from sblas_torch.ops.kernels import spmm_bsr as bkern
+from sblas_torch.ops.kernels import spmm_csr as ckern
 from sblas_torch.ops.kernels import spmv_csr as kern
 from sblas_torch.retile_bsr import pack_bsr
 from sblas_torch.utils.timing import measure_seconds_per_iter
@@ -127,17 +128,125 @@ def test_block_kernel_vs_plain_on_card(cuda, name, vdt, br):
 
 @pytest.mark.cuda
 def test_spmm_main_path_goes_through_the_block_kernel(cuda):
+    # at K = 32 the bytes rule picks the block route on cant (at K = 8 the
+    # nnz-balanced kernel)
     a = datasets.emulate("cant", scale=0.05)
     rng = np.random.default_rng(7)
-    x = rng.standard_normal((a.shape[1], 8)).astype(np.float32)
-    y0 = rng.standard_normal((a.shape[0], 8)).astype(np.float32)
+    x = rng.standard_normal((a.shape[1], 32)).astype(np.float32)
+    y0 = rng.standard_normal((a.shape[0], 32)).astype(np.float32)
     before = bkern.LAUNCHES
-    out = sblas_torch.spmm(a, x, 2.5, -0.5, y0, k_hint=8, device=cuda)
+    out = sblas_torch.spmm(a, x, 2.5, -0.5, y0, k_hint=32, device=cuda)
     torch.cuda.synchronize()
     assert out.device.type == "cuda"
     assert bkern.LAUNCHES == before + 1
     assert rel_err(out.cpu().numpy(),
                    spmm_golden(a, x, 2.5, -0.5, y0)) < 2e-5
+
+
+def _long_rows():
+    # rows of 20,000+ nonzeros, many empty rows (the last ones too), m != n
+    rng = np.random.default_rng(11)
+    rows = np.concatenate([np.zeros(21000), np.full(24000, 9),
+                           rng.integers(0, 300, 3000)])
+    cols = np.concatenate([rng.permutation(30000)[:21000],
+                           rng.permutation(30000)[:24000],
+                           rng.integers(0, 30000, 3000)])
+    return COO((400, 30000), rows, cols,
+               rng.standard_normal(len(rows)).astype(np.float32)).tocsr()
+
+
+CSR_MATRICES = {
+    "banded": MATRICES["banded"],
+    "empty_rows": MATRICES["empty_rows"],
+    "no_entries": MATRICES["no_entries"],
+    "long_rows": _long_rows,
+    "powerlaw": lambda: datasets.powerlaw_graph(3000, 12, seed=5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", [None, 5])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(CSR_MATRICES))
+def test_spmm_csr_vs_plain_on_card(cuda, name, vdt, unit):
+    # unit=5: many more shares than rows, rows cut across many shares
+    a = CSR_MATRICES[name]()
+    raw = to_device(a, cuda, vdt)
+    op = ckern.prepare(raw) if unit is None else ckern.prepare(raw, unit)
+    m, n = a.shape
+    for k in (1, 3, 8, 32, 40):
+        x = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, k)).astype(np.float32)).to(cuda)
+        y = torch.from_numpy(np.random.default_rng(k + 1).standard_normal(
+            (m, k)).astype(np.float32)).to(cuda)
+        for args in ((2.5, -0.5, y), (1.0, 0.0, None)):
+            before = ckern.LAUNCHES
+            got = ckern.spmm_csr(op, x, *args)
+            torch.cuda.synchronize()
+            assert ckern.LAUNCHES == before + 1
+            want = ckern.spmm_csr_reference(op, x, *args)
+            assert got.shape == (m, k) and torch.isfinite(got).all()
+            assert rel_err(got.cpu().numpy(),
+                           want.cpu().numpy()) <= KERNEL_TOL
+            # no atomics: the same bits from run to run
+            assert torch.equal(got, ckern.spmm_csr(op, x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+def test_spmm_csr_permutations_on_card(cuda, vdt):
+    # the pseg plan permutes X and Y around the kernel on the relabeled
+    # operand: the drop-in call in the graph's own order, and the
+    # permuted space as is
+    g = datasets.powerlaw_graph(3000, 12, seed=5)
+    plan = sblas_torch.SpmmPlan(g, "pseg", value_dtype=vdt, device=cuda)
+    assert plan._perms is not None
+    cols = torch.from_numpy(plan.colperm).to(cuda)
+    rows = torch.from_numpy(plan.rowperm).to(cuda)
+    m, n = g.shape
+    for k in (1, 3, 8, 32):
+        x = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, k)).astype(np.float32)).to(cuda)
+        y = torch.from_numpy(np.random.default_rng(k + 1).standard_normal(
+            (m, k)).astype(np.float32)).to(cuda)
+        for args in ((2.5, -0.5, y), (1.0, 0.0, None)):
+            before = ckern.LAUNCHES
+            got = plan(x, *args)
+            yp = None if args[2] is None else args[2][rows]
+            got_p = plan.apply_permuted(x[cols], args[0], args[1], yp)
+            torch.cuda.synchronize()
+            assert ckern.LAUNCHES == before + 2
+            want = ckern.spmm_csr_reference(plan._op, x[cols], args[0],
+                                            args[1], yp)
+            assert rel_err(got_p.cpu().numpy(),
+                           want.cpu().numpy()) <= KERNEL_TOL
+            assert torch.equal(got[rows], got_p)
+            if vdt == torch.float32:
+                yy = None if args[2] is None else args[2].cpu().numpy()
+                assert rel_err(got.cpu().numpy(), spmm_golden(
+                    g, x.cpu().numpy(), args[0], args[1], yy)) < 2e-5
+
+
+@pytest.mark.cuda
+def test_scattered_main_paths_go_through_the_kernel(cuda):
+    a = datasets.powerlaw_graph(20000, 16, seed=3)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((a.shape[1], 8)).astype(np.float32)
+    y0 = rng.standard_normal((a.shape[0], 8)).astype(np.float32)
+    before = ckern.LAUNCHES
+    out = sblas_torch.spmv(a, x[:, 0], 2.5, -0.5, y0[:, 0], method="pseg",
+                           device=cuda)
+    outm = sblas_torch.spmm(a, x, 2.5, -0.5, y0, method="pseg", device=cuda)
+    outp = sblas_torch.spmm(a, x, method="pallas", device=cuda)
+    outa = sblas_torch.spmv(a, x[:, 0], device=cuda)     # auto: merge
+    torch.cuda.synchronize()
+    assert ckern.LAUNCHES == before + 4
+    assert rel_err(out.cpu().numpy(),
+                   spmv_golden(a, x[:, 0], 2.5, -0.5, y0[:, 0])) < 2e-5
+    assert rel_err(outa.cpu().numpy(), spmv_golden(a, x[:, 0])) < 2e-5
+    assert rel_err(outm.cpu().numpy(),
+                   spmm_golden(a, x, 2.5, -0.5, y0)) < 2e-5
+    assert rel_err(outp.cpu().numpy(), spmm_golden(a, x)) < 2e-5
 
 
 def test_timing_refuses_a_cpu_carry():

@@ -1,7 +1,8 @@
 """The port's own host layer against the JAX package's, on the same seeds.
 
-The port copies ``formats``, ``io``, ``datasets``, ``golden``, ``retile``
-and ``retile_bsr`` instead of importing them. These tests hold every copy
+The port copies ``formats``, ``io``, ``datasets``, ``golden``, ``retile``,
+``retile_bsr``, ``reorder`` and ``hub_relabel`` (``relabel``) instead of
+importing them. These tests hold every copy
 to the original: the same generator seeds give the same arrays, the same
 retilings give the same layouts, and a matrix written by one package reads
 back identically in the other. No tolerance: the arrays must be equal.
@@ -23,8 +24,11 @@ from sblas import datasets as ref_ds
 from sblas import golden as ref_golden
 from sblas import io as ref_io
 from sblas import retile as ref_retile
+from sblas import reorder as ref_reorder
 from sblas import retile_bsr as ref_bsr
-from sblas_torch import datasets, golden, io, retile, retile_bsr
+from sblas.ops.kernels import spmv_pseg as ref_pseg
+from sblas_torch import (datasets, golden, io, relabel, reorder, retile,
+                         retile_bsr)
 from sblas_torch.formats import CSC, CSR, from_reference
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -113,6 +117,40 @@ def test_bsr_stats_match(name, br):
     r = GENERATORS[name](ref_ds)
     assert retile_bsr.bsr_stats(from_reference(r), br=br) == \
         ref_bsr.bsr_stats(r, br=br)
+
+
+def test_rcm_matches():
+    base = ref_ds.random_csr(600, 600, 12, bandwidth=30, seed=21)
+    p = np.random.default_rng(22).permutation(600)
+    s = base.to_scipy().tocsr()[p][:, p].tocsr()
+    s.sort_indices()
+    r = type(base).from_scipy(s)
+    pa, pperm = reorder.rcm(from_reference(r))
+    ra, rperm = ref_reorder.rcm(r)
+    np.testing.assert_array_equal(pperm, rperm)
+    _same_csr(pa, ra)
+    y = np.random.default_rng(3).standard_normal(600)
+    np.testing.assert_array_equal(reorder.unpermute(y, pperm),
+                                  ref_reorder.unpermute(y, rperm))
+    with pytest.raises(ValueError, match="square"):
+        reorder.rcm(datasets.random_csr(30, 20, 3, seed=1))
+
+
+@pytest.mark.parametrize("name", ["emulate(uk-2002,1e-4)", "powerlaw_graph",
+                                  "banded"])
+def test_hub_relabel_matches(name):
+    # a graph relabels; a band of 3000 columns has no hubs (its top 256
+    # columns hold under 10% of the nonzeros) and keeps the identity
+    r = ref_ds.banded(3000, 5, seed=1) if name == "banded" \
+        else GENERATORS[name](ref_ds)
+    pa, pcol, prow = relabel.hub_relabel(from_reference(r))
+    ra, rcol, rrow = ref_pseg.hub_relabel(r)
+    np.testing.assert_array_equal(pcol, rcol)
+    np.testing.assert_array_equal(prow, rrow)
+    _same_csr(pa, ra)
+    identity = np.array_equal(pcol, np.arange(r.shape[1]))
+    assert identity == (name == "banded")
+    assert relabel.HUB_COLS == ref_pseg.HUB_PANELS * ref_pseg.LANES
 
 
 def test_mtx_round_trip_across_packages(tmp_path):
@@ -207,7 +245,7 @@ n = a.shape[1]
 x = np.random.default_rng(0).standard_normal((n, 4)).astype(np.float32)
 assert golden.rel_err(sblas_torch.spmv(a, x[:, 0], device="cpu").numpy(),
                       golden.spmv_golden(a, x[:, 0])) < 2e-5
-for method in ("block", "spmv_passes"):
+for method in ("block", "spmv_passes", "merge", "pseg", "pallas"):
     out = sblas_torch.spmm(a, x, method=method, device="cpu").numpy()
     assert golden.rel_err(out, golden.spmm_golden(a, x)) < 2e-5, method
 print("MODULES", sorted(m for m in sys.modules

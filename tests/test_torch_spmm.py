@@ -31,8 +31,8 @@ from sblas.ops.spmm import SpmmPlan as RefPlan
 from sblas.ops.spmm import spmm as ref_spmm
 from sblas_torch.formats import CSR, from_reference
 from sblas_torch.ops.kernels import spmm_bsr as bkern
-from sblas_torch.ops.spmm import (_PLAN_CACHE, NOT_PORTED, ROUTES, SpmmPlan,
-                                  block_stream_bytes, spmm)
+from sblas_torch.ops.spmm import (_PLAN_CACHE, NOT_PORTED, ROUTES, X_GATHER,
+                                  SpmmPlan, block_stream_bytes, spmm)
 from sblas_torch.ops.spmv import csr_bytes_per_iter
 from sblas_torch.retile_bsr import pack_bsr
 
@@ -179,28 +179,36 @@ def test_routes_vs_reference(method, name, dtype):
 def test_auto_picks_block_by_the_bytes_rule():
     a = _cant()
     pa = _p(a)
-    plan = SpmmPlan(pa, device="cpu")
-    assert plan.method == "block" and plan.k_hint == 8
-    assert "block stream" in plan.route_reason
+    plan = SpmmPlan(pa, k_hint=32, device="cpu")
+    assert plan.method == "block" and plan.k_hint == 32
+    assert "block " in plan.route_reason and "merge " in plan.route_reason
     assert plan.route_reason.endswith("-> block")
+    eight = SpmmPlan(pa, device="cpu")
+    assert eight.method == "merge" and eight.k_hint == 8
+    assert eight.route_reason.endswith("-> merge")
     one = SpmmPlan(pa, k_hint=1, device="cpu")
     assert one.method == "spmv_passes"
     assert one.route_reason.endswith("-> spmv_passes")
     g = datasets.powerlaw_graph(3000, 10, seed=5)
-    assert SpmmPlan(_p(g), device="cpu").method == "spmv_passes"
+    assert SpmmPlan(_p(g), device="cpu").method == "merge"
 
 
 def test_auto_rule_is_the_bytes_model():
     a = _p(_cant())
     m, n = a.shape
     for k, br, vd in ((8, 128, torch.float32), (3, 64, torch.bfloat16),
-                      (2, 128, torch.float32)):
+                      (2, 128, torch.float32), (32, 128, torch.float32)):
         plan = SpmmPlan(a, k_hint=k, block_rows=br, value_dtype=vd,
                         device="cpu")
+        vb = vd.itemsize
         b = pack_bsr(a, br=br)
-        block = block_stream_bytes(b.nblocks, b.num_brows, br, vd.itemsize)
-        passes = k * csr_bytes_per_iter(m, n, a.nnz, vd.itemsize)
-        assert plan.method == ("block" if block <= passes else "spmv_passes")
+        xy = (n + m) * k * 4
+        prices = {
+            "block": block_stream_bytes(b.nblocks, b.num_brows, br, vb) + xy,
+            "merge": a.nnz * (vb + 4) + (m + 1) * 4
+            + int(X_GATHER * a.nnz * k * 4) + xy,
+            "spmv_passes": k * csr_bytes_per_iter(m, n, a.nnz, vb)}
+        assert plan.method == min(prices, key=prices.get)
 
 
 @pytest.mark.parametrize("name", ["banded", "skewed", "m!=n", "block-dense"])
@@ -220,7 +228,7 @@ def test_slice_auto_vs_reference():
     x, y0 = _dense((a.shape[1], 8), 52), _dense((a.shape[0], 8), 53)
     port = spmm(pa, x, 2.5, -0.5, y0, method="auto", k_hint=8, device="cpu")
     (plan,) = _PLAN_CACHE[pa].values()
-    assert plan.method == "block"
+    assert plan.method == "merge"         # the bytes rule's pick at K = 8
     ref = RefPlan(a, "bsr_pallas_t", k_hint=8)(x, 2.5, -0.5, y0)
     _held(port, ref, spmm_golden(a, x, 2.5, -0.5, y0))
 
