@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of the repository
 
 It builds the port's CUDA kernels from the sources in the checkout and
-holds each against its plain torch version on the card. It drives the two
+holds each against its plain torch version on the card. It drives the three
 main paths a user calls, each with every kernel launch count set to 0 just
 before it and read just after:
 
@@ -16,14 +16,22 @@ before it and read just after:
 - SpMM (``sblas_torch.spmm``, ``method="auto"``, ``Y = alpha A X + beta
   Y``) on full-size ``cant``, ``consph`` and ``pdb1HYS`` at K = 8 and 32,
   the FEM band at K = 8 and both graphs at K = 8 and 32;
+- the triangular solves (``sblas_torch.sptrsv`` and ``sptrsm``,
+  ``method="auto"``: the sync-free kernel) on the factors of BASELINE.json
+  config 3 that ``benchmarks/run_suite.py`` solves (``band-parallel``,
+  ``chol-nd-poisson2d-60`` and ``-120``) and on ``chol-nd-poisson2d-1000``,
+  the same Cholesky factor at 1M rows and 50M nonzeros: K = 1 and 8, and
+  ``trans=True`` (the Cholesky backsolve); and ``method="jacobi"`` on
+  ``band-parallel``;
 
 checks every result against scipy, and fails where the route the rule
 picked launched no kernel. It times each kernel beside its plain version,
 its bound (bytes at the card's data-sheet memory rate, or flops at its fp32
 rate), cuSPARSE and a STREAM triad, times the routes of each matrix
-against each other (``rule_picked``, ``faster_route``), and times the SpMV
+against each other (``rule_picked``, ``faster_route``), times the SpMV
 csr kernel at every lanes-per-row width it takes (each width checked
-first). It imports only the port.
+first), and times each solve beside its plain version, its bound, its ns
+per level and cuSPARSE's ``triangular_solve``. It imports only the port.
 
 Output: one JSON line per phase; a ``{"kernels": [...]}`` line; the card's
 ``name, power.limit`` as nvidia-smi prints it; and last
@@ -59,17 +67,22 @@ def main() -> int:
 
     import sblas_torch
     from sblas_torch import datasets
-    from sblas_torch.bench_lib import EPS, bench_spmm, bench_spmv
+    from sblas_torch.bench_lib import (EPS, SOLVE_TOL, bench_spmm,
+                                       bench_spmv, bench_sptrsm,
+                                       bench_sptrsv)
     from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
-                                    spmv_golden, value_tol)
+                                    spmv_golden, sptrsm_golden,
+                                    sptrsv_golden, value_tol)
     from sblas_torch.ops.common import as_csr, relabeled
     from sblas_torch.ops.kernels import _build
     from sblas_torch.ops.kernels import spmm_bsr as bkern
     from sblas_torch.ops.kernels import spmm_csr as ckern
+    from sblas_torch.ops.kernels import sptrsv_csr as skern
     from sblas_torch.ops.kernels import spmv_csr as kern
     from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmm import _get_plan as spmm_plan
     from sblas_torch.ops.spmv import _get_plan, csr_stream_bytes
+    from sblas_torch.ops.sptrsv import get_plan as sptrsv_plan
     from sblas_torch.retile_bsr import pack_bsr
     from sblas_torch.utils.backend import probe
     from sblas_torch.utils.timing import (FP32_FLOPS, HBM_BYTES_PER_S,
@@ -83,7 +96,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     f32_tol = value_tol(torch.float32)
     t_start = time.perf_counter()
-    kernels = {"spmv_csr": kern, "spmm_bsr": bkern, "spmm_csr": ckern}
+    kernels = {"spmv_csr": kern, "spmm_bsr": bkern, "spmm_csr": ckern,
+               "sptrsv_csr": skern}
 
     def vec(*shape):
         return rng.standard_normal(shape).astype(np.float32)
@@ -128,6 +142,19 @@ def main() -> int:
         graphs[name] = datasets.emulate(name.split("@")[0], scale=scale,
                                         dtype=np.float32)
         graph_gen_s[name] = time.perf_counter() - t0
+    # the triangular factors of BASELINE.json config 3, as
+    # benchmarks/run_suite.py builds them, and the nested-dissection
+    # Cholesky factor scaled up to 1M rows and 50M nonzeros
+    factors, factor_gen_s = {}, {}
+    t0 = time.perf_counter()
+    factors["band-parallel"] = datasets.lower_triangular(
+        62451, 30, bandwidth=4000, seed=1, dtype=np.float32)
+    factor_gen_s["band-parallel"] = time.perf_counter() - t0
+    for grid in (60, 120, 1000):
+        t0 = time.perf_counter()
+        factors[f"chol-nd-poisson2d-{grid}"] = datasets.cholesky_factor(
+            datasets.poisson2d_nd(grid, dtype=np.float64), dtype=np.float32)
+        factor_gen_s[f"chol-nd-poisson2d-{grid}"] = time.perf_counter() - t0
     empty = sblas_torch.CSR((5, 7), np.zeros(6, np.int32),
                             np.zeros(0, np.int32), np.zeros(0, np.float32))
     cases = {
@@ -262,6 +289,33 @@ def main() -> int:
               "shares": shares, "fixups": fixups, "tol": KERNEL_TOL,
               "max_rel_err": max(errs.values()), "cases": len(errs)})
 
+    # 4c. the sync-free solve kernel vs its plain version on the card, on
+    # each factor, lower (L) and upper (L^T, the backsolve), K = 1 and 8;
+    # and the same bits on 20 repeats ------------------------------------
+    for name, l in factors.items():
+        errs, nlevels, t0 = {}, {}, time.perf_counter()
+        for side, a, lower in (("L", l, True), ("L^T", as_csr(l, True),
+                                                False)):
+            op = sptrsv_plan(a, lower=lower)._op
+            for k in (1, 8):
+                b = on_card(vec(a.shape[0], k))
+                got = skern.sptrsv_csr(op, b)
+                errs[f"{side},K={k}"] = check_plain(
+                    "sptrsv_csr", f"{name} {side} K={k}", got,
+                    skern.sptrsv_csr_reference(op, b))
+                if k == 1:
+                    for _ in range(20):
+                        if not torch.equal(skern.sptrsv_csr(op, b), got):
+                            raise RuntimeError(f"{name} {side}: the solve "
+                                               "changed from run to run")
+            nlevels[side] = op["nlevels"]
+            del op, b, got
+        emit({"phase": "sptrsv_kernel_vs_plain", "matrix": name,
+              "n": l.shape[0], "nnz": l.nnz, "nlevels": nlevels,
+              "longest_row": int(l.row_lengths.max(initial=0)),
+              "tol": KERNEL_TOL, "rel_err": errs, "repeats_bit_equal": 20,
+              "seconds": time.perf_counter() - t0})
+
     # 5. the main paths, through the user's entry points: the route is the
     # rule's pick, and each call must launch that route's kernel ---------
     by_route = {"csr": kern, "rcm": kern, "merge": ckern, "pseg": ckern,
@@ -294,15 +348,16 @@ def main() -> int:
         at = as_csr(a, True)    # the host transpose spmv builds and caches
         bf16 = {"value_dtype": torch.bfloat16}
         res = {}
+        ref = spmv_golden(a, x)     # one golden per input
         check(res, name, "f32", lambda: sblas_torch.spmv(a, x),
-              lambda: _get_plan(a, "auto"), spmv_golden(a, x), f32_tol)
+              lambda: _get_plan(a, "auto"), ref, f32_tol)
         check(res, name, "f32 alpha/beta",
               lambda: sblas_torch.spmv(a, x, 2.5, -0.5, y0, method="auto"),
               lambda: _get_plan(a, "auto"),
               spmv_golden(a, x, 2.5, -0.5, y0), f32_tol)
         check(res, name, "bf16 values",
               lambda: sblas_torch.spmv(a, x, method="auto", **bf16),
-              lambda: _get_plan(a, "auto", **bf16), spmv_golden(a, x),
+              lambda: _get_plan(a, "auto", **bf16), ref,
               value_tol(torch.bfloat16))
         check(res, name, "f32 trans",
               lambda: sblas_torch.spmv(a, xt, trans=True, method="auto"),
@@ -315,18 +370,18 @@ def main() -> int:
         kw = {"method": method, "k_hint": k}
         bf16 = {**kw, "value_dtype": torch.bfloat16}
         res = {}
+        ref = spmm_golden(a, x, 2.5, -0.5, y0)     # one golden per input
         t0 = time.perf_counter()
         check(res, name, "f32 alpha/beta",
               lambda: sblas_torch.spmm(a, x, 2.5, -0.5, y0, **kw),
-              lambda: spmm_plan(a, method, k_hint=k),
-              spmm_golden(a, x, 2.5, -0.5, y0), f32_tol)
+              lambda: spmm_plan(a, method, k_hint=k), ref, f32_tol)
         first_s = time.perf_counter() - t0
         if "bf16" in extra_checks:
-            check(res, name, "bf16 values",
-                  lambda: sblas_torch.spmm(a, x, **bf16),
+            check(res, name, "bf16 values alpha/beta",
+                  lambda: sblas_torch.spmm(a, x, 2.5, -0.5, y0, **bf16),
                   lambda: spmm_plan(a, method, k_hint=k,
                                     value_dtype=torch.bfloat16),
-                  spmm_golden(a, x), value_tol(torch.bfloat16))
+                  ref, value_tol(torch.bfloat16))
         if "trans" in extra_checks:
             xt = vec(m, k)
             at = as_csr(a, True)
@@ -397,6 +452,77 @@ def main() -> int:
     # (outside the main path's launch window)
     for name, a in fem_suite.items():
         spmm_main_path(name, a, 8, set(), method="block")
+
+    # 5c. the triangular solves: sptrsv and sptrsm (auto: the sync-free
+    # kernel), the Cholesky backsolve (trans), and the Jacobi sweeps -------
+    solve_tol = SOLVE_TOL[np.dtype(np.float32)]
+
+    def check_solve(res, name, label, call, plan, ref, mod):
+        before = mod.LAUNCHES
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if mod.LAUNCHES == before:
+            raise RuntimeError(f"{name} {label}: route {plan.method!r} "
+                               f"({plan.route_reason}) launched no kernel")
+        got = out.cpu().numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"{name} {label}: bad output")
+        err = rel_err(got, ref)
+        if not err < solve_tol:
+            raise RuntimeError(f"{name} {label}: rel_err vs scipy {err} "
+                               f">= {solve_tol}")
+        res[label] = {"rel_err": err, "tol": solve_tol, "method": plan.method,
+                      "route_reason": getattr(plan, "route_reason", None),
+                      "nlevels": plan.nlevels, "seconds": seconds}
+
+    reset()
+    for name, l in factors.items():
+        n = l.shape[0]
+        b, bm = vec(n), vec(n, 8)
+        lt = as_csr(l, True)
+        res, t0 = {}, time.perf_counter()
+        check_solve(res, name, "K=1", lambda: sblas_torch.sptrsv(l, b),
+                    sptrsv_plan(l), sptrsv_golden(l, b), skern)
+        check_solve(res, name, "K=8", lambda: sblas_torch.sptrsm(l, bm),
+                    sptrsv_plan(l), sptrsm_golden(l, bm), skern)
+        check_solve(res, name, "trans K=1",
+                    lambda: sblas_torch.sptrsv(l, b, trans=True),
+                    sptrsv_plan(lt, lower=False),
+                    sptrsv_golden(lt, b, lower=False), skern)
+        emit({"phase": "main_path", "path": "sptrsv", "matrix": name,
+              "n": n, "nnz": l.nnz, "seconds": time.perf_counter() - t0,
+              "checks": res})
+    bp = factors["band-parallel"]
+    b = vec(bp.shape[0])
+    res = {}
+    check_solve(res, "band-parallel", "jacobi K=1",
+                lambda: sblas_torch.sptrsv(bp, b, method="jacobi"),
+                sptrsv_plan(bp, method="jacobi"), sptrsv_golden(bp, b),
+                by_route[sptrsv_plan(bp, method="jacobi")._e.method])
+    emit({"phase": "main_path", "path": "sptrsv", "matrix": "band-parallel",
+          "checks": res,
+          "sweeps": sptrsv_plan(bp, method="jacobi").sweeps})
+    sptrsv_launches = counts()
+    emit({"phase": "launches", "path": "sptrsv", **sptrsv_launches})
+    if sptrsv_launches["sptrsv_csr"] == 0:
+        raise RuntimeError("the solves' main path never launched sptrsv_csr")
+    launches = {name: launches[name] + sptrsv_launches[name]
+                for name in kernels}
+
+    # the csr SpMV route by name on the graphs' rows of 10^5+ nonzeros, with
+    # this run's random x (outside the launch windows)
+    for name, a in graphs.items():
+        x = vec(a.shape[1])
+        err = rel_err(sblas_torch.spmv(a, x, method="csr").cpu().numpy(),
+                      spmv_golden(a, x))
+        emit({"phase": "csr_long_rows", "matrix": name,
+              "longest_row": int(a.row_lengths.max(initial=0)),
+              "rel_err": err, "tol": f32_tol})
+        if not err < f32_tol:
+            raise RuntimeError(f"{name}: csr route rel_err {err} >= "
+                               f"{f32_tol}")
 
     # 6. SpMV timing: the csr kernel, the nnz-balanced one, their plain
     # versions, cuSPARSE and the bound ------------------------------------
@@ -592,6 +718,44 @@ def main() -> int:
           "faster_route": min(routes, key=routes.get),
           "x_gather_fit": x_gather_fit(fem, 8, routes["merge"])})
 
+    # 7b. the solves: the sync-free kernel through its plan (K = 1, 8 and
+    # the backsolve), its plain version, the bound, ns per level and
+    # cuSPARSE's triangular_solve; the Jacobi sweeps on band-parallel ------
+    solve_timings = {}
+    # the plain version runs ~8 torch calls a level: one and two solves
+    solve_few = {"iters_lo": 1, "iters_hi": 2, "repeats": 1}
+    for name, l in factors.items():
+        lt = as_csr(l, True)
+        # on the default device: the plans the main path built and cached
+        recs = {"K=1": bench_sptrsv(l), "K=8": bench_sptrsm(l, 8),
+                "trans K=1": bench_sptrsv(lt, lower=False)}
+        if name == "band-parallel":
+            recs["jacobi K=1"] = bench_sptrsv(l, method="jacobi",
+                                              baseline=False)
+        op = sptrsv_plan(l)._op
+        plain_us = {k: us(lambda x, b0: skern.sptrsv_csr_reference(
+            op, b0 + EPS * x), on_card(vec(l.shape[0], k)), **solve_few)
+            for k in (1, 8)}
+        del op
+        rows = {}
+        for label, rec in recs.items():
+            e = rec.extra
+            rows[label] = {
+                "method": e["method"], "us": rec.seconds_per_iter * 1e6,
+                "bound_us": e["bound_us"], "bound_by": e["bound_by"],
+                "bytes": rec.bytes, "gbps": rec.gbps,
+                "ns_per_level": e["ns_per_level"],
+                "levels_per_s": e["levels_per_s"], "nlevels": e["nlevels"],
+                "rel_err": e["rel_err"],
+                "cusparse_us": e.get("baseline_us"),
+                "cusparse_error": e.get("baseline_error"),
+                **({"sweeps": e["sweeps"]} if "sweeps" in e else {})}
+        rows["K=1"]["plain_us"], rows["K=8"]["plain_us"] = plain_us[1], \
+            plain_us[8]
+        solve_timings[name] = rows
+        emit({"phase": "sptrsv_timing", "matrix": name, "card": card,
+              "n": l.shape[0], "nnz": l.nnz, **rows})
+
     # 8. lanes-per-row sweep on cant: every width the csr kernel takes,
     # each checked against the plain version before it is timed (an earlier
     # sweep of the FEM band found G = 8 fastest there too) ----------------
@@ -615,9 +779,11 @@ def main() -> int:
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "suite_generate_s": suite_gen_s, "fem_generate_s": fem_gen_s,
-          "graph_generate_s": graph_gen_s, "relabel_s": relabel_s})
+          "graph_generate_s": graph_gen_s, "relabel_s": relabel_s,
+          "factor_generate_s": factor_gen_s})
     main = spmm_timings[("consph", 8, 128)]
     tw = graph_timings[("twitter7@0.02", 8)]
+    big = solve_timings["chol-nd-poisson2d-1000"]["K=1"]
     emit({"kernels": [
         {"name": "spmv_csr", "route": "cuda",
          "source": "sblas_torch/csrc/spmv_csr.cu",
@@ -648,7 +814,18 @@ def main() -> int:
          "ms": tw["kernel_us"] / 1e3, "plain_ms": tw["plain_us"] / 1e3,
          "bound_ms": tw["bound_us"] / 1e3, "bound_by": tw["bound_by"],
          "library_ms": tw["cusparse_us"] / 1e3,
-         "shape": "twitter7@0.02 f32 K=8, natural order (route merge)"}]})
+         "shape": "twitter7@0.02 f32 K=8, natural order (route merge)"},
+        {"name": "sptrsv_csr", "route": "cuda",
+         "source": "sblas_torch/csrc/sptrsv_csr.cu",
+         "replaces": ["sblas/ops/kernels/sptrsv_pallas.py:510",
+                      "sblas/ops/kernels/sptrsv_pallas.py:1045"],
+         "launches": launches["sptrsv_csr"],
+         "max_abs_err": max_abs["sptrsv_csr"],
+         "ms": big["us"] / 1e3, "plain_ms": big["plain_us"] / 1e3,
+         "bound_ms": big["bound_us"] / 1e3, "bound_by": big["bound_by"],
+         "library_ms": None if big["cusparse_us"] is None
+         else big["cusparse_us"] / 1e3,
+         "shape": "chol-nd-poisson2d-1000 (1M rows, 50.2M nnz) f32, K=1"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

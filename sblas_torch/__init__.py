@@ -3,6 +3,8 @@
     A = sblas_torch.datasets.emulate("cant")    # a host CSR of the port
     y = sblas_torch.spmv(A, x, alpha=1.0, beta=0.0, y=None)
     Y = sblas_torch.spmm(A, X, k_hint=X.shape[1])
+    x = sblas_torch.sptrsv(L, b, lower=True, trans=False)
+    X = sblas_torch.sptrsm(L, B)
 
 The host layer (formats, Matrix Market I/O, dataset generators, scipy
 goldens, ELL and block retiling) is the port's own: copies of the JAX
@@ -15,7 +17,8 @@ lazily, so ``import sblas_torch`` works on CPU-only torch with no
 (``sblas_torch.ops.kernels._build``).
 """
 
-from . import datasets, golden, relabel, reorder, retile, retile_bsr
+from . import (datasets, golden, levels, relabel, reorder, retile,
+               retile_bsr, sptrsv_schedule)
 from .formats import (COO, CSC, CSR, coo_to_csc, coo_to_csr, csr_transpose,
                       from_reference, to_device, tril, triu)
 from .io import read_mtx, read_mtx_coo, write_mtx
@@ -26,13 +29,16 @@ __all__ = [
     "COO", "CSR", "CSC",
     "coo_to_csr", "coo_to_csc", "csr_transpose", "tril", "triu",
     "from_reference", "read_mtx", "read_mtx_coo", "write_mtx",
-    "datasets", "golden", "relabel", "reorder", "retile", "retile_bsr",
-    "to_device",
+    "datasets", "golden", "levels", "relabel", "reorder", "retile",
+    "retile_bsr", "sptrsv_schedule", "to_device",
     "spmv", "SpmvPlan", "spmm", "SpmmPlan",
+    "sptrsv", "SptrsvPlan", "sptrsm", "SptrsmPlan",
 ]
 
 _LAZY = {"spmv": ".ops.spmv", "SpmvPlan": ".ops.spmv",
-         "spmm": ".ops.spmm", "SpmmPlan": ".ops.spmm"}
+         "spmm": ".ops.spmm", "SpmmPlan": ".ops.spmm",
+         "sptrsv": ".ops.sptrsv", "SptrsvPlan": ".ops.sptrsv",
+         "sptrsm": ".ops.sptrsm", "SptrsmPlan": ".ops.sptrsm"}
 
 
 def __getattr__(name):

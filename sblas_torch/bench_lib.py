@@ -1,5 +1,6 @@
-"""SpMV and SpMM benchmarks on the card: the port of
-``sblas/bench_lib.py:bench_spmv`` and ``bench_spmm``.
+"""SpMV, SpMM and triangular-solve benchmarks on the card: the port of
+``sblas/bench_lib.py:bench_spmv``, ``bench_spmm``, ``bench_sptrsv`` and
+``bench_sptrsm``.
 
 The step is the plan's own ``Y = alpha A X + beta Y`` with ``alpha = 1e-30``,
 ``beta = 1`` and ``Y = X0``: it returns ``X0 + 1e-30 A X``, numerically
@@ -7,9 +8,15 @@ The step is the plan's own ``Y = alpha A X + beta Y`` with ``alpha = 1e-30``,
 ``bench_lib.py:32``), and the fused epilogue does it without an extra pass.
 Bytes follow the plan's model plus the ``Y`` it reads.
 
+The solves time ``x <- solve(b0 + 1e-30 x)`` the same way. Their bytes
+count each nonzero's value and column, ``indptr``, ``b``, ``x`` and a flag
+a row once (``SptrsvPlan.bytes_per_iter``); beside the time they report
+levels per second and ns per level: a solve is a chain of dependent levels,
+and its time is set by their latency more than by its bytes.
+
 Beside the plan, the same step runs through ``torch.sparse_csr_tensor``
-(cuSPARSE: ``addmv`` for SpMV, ``addmm`` for SpMM) as ``baseline``: a
-measurement, never a route.
+(cuSPARSE: ``addmv`` for SpMV, ``addmm`` for SpMM, ``triangular_solve`` for
+the solves) as ``baseline``: a measurement, never a route.
 """
 
 from __future__ import annotations
@@ -18,15 +25,22 @@ import numpy as np
 import torch
 
 from .formats import CSR, as_torch_dtype
-from .golden import rel_err, spmm_golden, spmv_golden, value_tol
+from .golden import (rel_err, spmm_golden, spmv_golden, sptrsv_golden,
+                     value_tol)
 from .ops.spmm import SpmmPlan
 from .ops.spmv import SpmvPlan
+from .ops.sptrsm import SptrsmPlan
+from .ops.sptrsv import get_plan as sptrsv_plan
 from .utils.timing import (FP32_FLOPS, HBM_BYTES_PER_S, BenchRecord,
-                           measure_seconds_per_iter, stream_bandwidth)
+                           measure_eager_seconds, measure_seconds_per_iter,
+                           stream_bandwidth)
 
 # keeps the carry numerically equal to x0 while each iteration depends on
 # the one before (tiny * y underflows against x0)
 EPS = 1e-30
+# an exact solve against scipy: the JAX package's limits
+# (sblas/bench_lib.py:391)
+SOLVE_TOL = {np.dtype(np.float32): 1e-3, np.dtype(np.float64): 1e-10}
 
 
 def _cuda(device, what: str) -> torch.device:
@@ -149,3 +163,88 @@ def bench_spmm(a: CSR, k: int = 8, *, method: str = "auto", value_dtype=None,
         extra["speedup_vs_baseline"] = base / per
     return BenchRecord(name=f"spmm_k{k}", seconds_per_iter=per,
                        flops=2.0 * a.nnz * k, bytes=nbytes, extra=extra)
+
+
+def _cusparse_solve(l: CSR, lower: bool, b0: torch.Tensor, dev,
+                    extra: dict) -> None:
+    """``torch.triangular_solve`` on a sparse CSR (cuSPARSE SpSV/SpSM on
+    the card), timed eagerly with CUDA events: its error, where torch
+    refuses the call."""
+    sp = _cusparse(l, dev)
+    b2 = b0 if b0.dim() == 2 else b0[:, None]
+    extra["baseline"] = ("cusparse (torch.triangular_solve on "
+                         "torch.sparse_csr_tensor, eager)")
+    try:
+        base = measure_eager_seconds(
+            lambda: torch.triangular_solve(b2, sp, upper=not lower))
+    except RuntimeError as e:
+        extra["baseline_error"] = str(e).splitlines()[0][:300]
+        return
+    extra["baseline_us"] = base * 1e6
+
+
+def _bench_solve(name: str, l: CSR, plan, b0_np: np.ndarray, dev,
+                 nbytes: int, k: int, baseline: bool) -> BenchRecord:
+    b0 = torch.from_numpy(b0_np).to(dev)
+    extra = {"method": plan.method, "nnz": l.nnz, "n": l.shape[0],
+             "nlevels": plan.nlevels, "dtype": str(np.dtype(l.dtype)),
+             "device": torch.cuda.get_device_name(dev)}
+    if hasattr(plan, "route_reason"):
+        extra["route_reason"] = plan.route_reason
+    err = rel_err(plan(b0).cpu().numpy(),
+                  sptrsv_golden(l, b0_np, lower=plan.lower,
+                                unit_diagonal=plan.unit_diagonal))
+    extra["rel_err"] = err
+    tol = SOLVE_TOL[np.dtype(l.dtype)]
+    if not err < tol:
+        raise RuntimeError(f"validation failed: rel_err {err} >= {tol}")
+    # a solve takes 0.1-300 ms: a few iterations resolve it
+    per = measure_seconds_per_iter(lambda x, b0: plan(b0 + EPS * x), b0, b0,
+                                   iters_lo=1, iters_hi=4)
+    extra["levels_per_s"] = plan.nlevels / per
+    extra["ns_per_level"] = per * 1e9 / max(plan.nlevels, 1)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    flops_s = 2.0 * l.nnz * k / FP32_FLOPS
+    extra["bound_us"] = max(bytes_s, flops_s) * 1e6
+    extra["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
+    if baseline:
+        _cusparse_solve(l, plan.lower, b0, dev, extra)
+    return BenchRecord(name=name, seconds_per_iter=per, flops=2.0 * l.nnz * k,
+                       bytes=nbytes, extra=extra)
+
+
+def bench_sptrsv(l: CSR, *, lower: bool = True, method: str = "auto",
+                 device=None, baseline: bool = True) -> BenchRecord:
+    """One SpTRSV record on a CUDA device, validated against scipy first
+    (``SOLVE_TOL``; ``jacobi`` runs its exact ``nlevels - 1`` sweeps).
+    ``extra["bound_us"]``: the plan's bytes over the card's data-sheet
+    memory rate, or ``2 nnz`` flops over its fp32 rate, whichever is
+    larger. The plan comes from the plan cache, so that ``sptrsv`` and
+    :func:`bench_sptrsm` of the same matrix share its analysis."""
+    dev = _cuda(device, "bench_sptrsv")
+    # the caller's device only where it gave one: then the plan is the one
+    # sptrsv(l, b) builds and caches
+    plan = sptrsv_plan(l, lower=lower, method=method,
+                       **({} if device is None else {"device": dev}))
+    b0 = np.random.default_rng(0).standard_normal(l.shape[0]).astype(l.dtype)
+    rec = _bench_solve("sptrsv", l, plan, b0, dev, plan.bytes_per_iter, 1,
+                       baseline)
+    if method == "jacobi":
+        rec.extra["sweeps"] = plan.sweeps
+    return rec
+
+
+def bench_sptrsm(l: CSR, k: int = 8, *, lower: bool = True,
+                 method: str = "auto", device=None,
+                 baseline: bool = True) -> BenchRecord:
+    """One SpTRSM record (``B`` of ``k`` columns) on a CUDA device,
+    validated against scipy first; the bound as :func:`bench_sptrsv`'s."""
+    dev = _cuda(device, "bench_sptrsm")
+    plan = SptrsmPlan(l, lower=lower, method=method,
+                      **({} if device is None else {"device": dev}))
+    b0 = np.random.default_rng(0).standard_normal(
+        (l.shape[0], k)).astype(l.dtype)
+    rec = _bench_solve(f"sptrsm_k{k}", l, plan, b0, dev,
+                       plan.bytes_per_iter(k), k, baseline)
+    rec.extra["k"] = k
+    return rec

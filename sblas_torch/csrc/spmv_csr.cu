@@ -20,7 +20,10 @@
 //     x is gathered through the read-only path (__ldg). The caller's rule
 //     (spmv_csr.group_size) follows chip_smoke.py's group sweep (PERF.md):
 //     G = 8 at 58-112 nonzeros per row;
-//   * fp32 FMA accumulation, bf16 values upcast in registers;
+//   * fp32 FMA accumulation, bf16 values upcast in registers; on a row of
+//     more than G * kSumBlock nonzeros a lane sums its share in blocks of
+//     kSumBlock products, so that the rows of 10^5+ nonzeros of a web graph
+//     keep f32 accuracy;
 //   * a shuffle reduction inside the group, then a fused alpha/beta
 //     epilogue by the group's first lane. y_in == nullptr means "no y" and
 //     is never read;
@@ -35,6 +38,7 @@
 namespace {
 
 constexpr int kBlock = 256;  // threads per block; a multiple of every G
+constexpr unsigned kSumBlock = 256;  // products a lane sums before acc
 
 __device__ __forceinline__ float load_value(const float* p) { return __ldg(p); }
 
@@ -68,8 +72,26 @@ spmv_csr_vector(int m, const int* __restrict__ indptr,
   const unsigned begin = static_cast<unsigned>(__ldg(indptr + row));
   const unsigned end = static_cast<unsigned>(__ldg(indptr + row + 1));
   float acc = 0.0f;
-  for (unsigned j = begin + lane; j < end; j += G) {
-    acc = fmaf(load_value(values + j), __ldg(x + __ldg(indices + j)), acc);
+  if (end - begin <= G * kSumBlock) {
+    for (unsigned j = begin + lane; j < end; j += G) {
+      acc = fmaf(load_value(values + j), __ldg(x + __ldg(indices + j)), acc);
+    }
+  } else {
+    // A longer row: each lane sums its share in blocks of kSumBlock
+    // products and adds the blocks' sums into acc. On a row of 387,101
+    // nonzeros one register would otherwise take ~48,000 products one
+    // after the other, and its rounding error grows with that count.
+    // (A row of one block takes the loop above: 0 + part is exact, so
+    // both loops give the same bits there; the plain loop is the faster.)
+    for (unsigned j0 = begin + lane; j0 < end; j0 += G * kSumBlock) {
+      const unsigned stop = min(end, j0 + G * kSumBlock);
+      float part = 0.0f;
+      for (unsigned j = j0; j < stop; j += G) {
+        part = fmaf(load_value(values + j), __ldg(x + __ldg(indices + j)),
+                    part);
+      }
+      acc += part;
+    }
   }
   const unsigned mask = group_mask<G>();
 #pragma unroll

@@ -105,6 +105,25 @@ def measure_seconds_per_iter(step: Callable, init: torch.Tensor, *args,
     return best
 
 
+def measure_eager_seconds(fn: Callable, *, reps: int = 3) -> float:
+    """Seconds per call of ``fn()`` run eagerly, between two CUDA events
+    around ``reps`` calls after one warm-up call: for a library call that a
+    CUDA graph may not capture. Host time between the calls is included."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("measure_eager_seconds times on a CUDA device; "
+                           "none here")
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3 / reps
+
+
 # 256 MiB per array: three of them are over 15x the H100's 50 MB L2
 STREAM_BYTES = 256 * (1 << 20)
 _STREAM_CACHE: dict = {}

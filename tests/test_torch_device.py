@@ -15,10 +15,12 @@ import torch
 import sblas_torch
 from sblas_torch import datasets
 from sblas_torch.formats import COO, CSR, to_device
+from sblas_torch.formats import csr_transpose
 from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
-                                spmv_golden)
+                                spmv_golden, sptrsm_golden, sptrsv_golden)
 from sblas_torch.ops.kernels import spmm_bsr as bkern
 from sblas_torch.ops.kernels import spmm_csr as ckern
+from sblas_torch.ops.kernels import sptrsv_csr as skern
 from sblas_torch.ops.kernels import spmv_csr as kern
 from sblas_torch.retile_bsr import pack_bsr
 from sblas_torch.utils.timing import measure_seconds_per_iter
@@ -247,6 +249,150 @@ def test_scattered_main_paths_go_through_the_kernel(cuda):
     assert rel_err(outm.cpu().numpy(),
                    spmm_golden(a, x, 2.5, -0.5, y0)) < 2e-5
     assert rel_err(outp.cpu().numpy(), spmm_golden(a, x)) < 2e-5
+
+
+@pytest.mark.cuda
+def test_csr_kernel_keeps_f32_accuracy_on_a_long_row(cuda):
+    # one row of 400,000 nonzeros: G = 2 lanes each sum 200,000 products
+    # (50,000 at G = 8, the csr route's pick on twitter7@0.02, where a lane
+    # summing them one after the other missed 2e-5)
+    rng = np.random.default_rng(21)
+    n, long = 1_000_000, 400_000
+    rows = np.concatenate([np.zeros(long, np.int64),
+                           np.repeat(np.arange(1, 2000), 3)])
+    cols = np.concatenate([rng.permutation(n)[:long],
+                           rng.integers(0, n, 3 * 1999)])
+    a = COO((2000, n), rows, cols,
+            rng.standard_normal(len(rows)).astype(np.float32)).tocsr()
+    assert a.row_lengths.max() >= 400_000
+    x = rng.standard_normal(n).astype(np.float32)
+    want = a.to_scipy().astype(np.float64) @ x.astype(np.float64)
+    xd = torch.from_numpy(x).to(cuda)
+    t = kern.prepare(to_device(a, cuda))
+    for g in kern.GROUPS:
+        got = kern.spmv_csr({**t, "group": g}, xd).cpu().numpy()
+        assert rel_err(got, want) < 2e-5, g
+
+
+def _sptrsv_cases():
+    return {
+        "band": lambda: datasets.lower_triangular(400, 6, bandwidth=30,
+                                                  seed=2),
+        "random": lambda: datasets.lower_triangular(300, 5, seed=3),
+        "chol-nd": lambda: datasets.cholesky_factor(
+            datasets.poisson2d_nd(30, dtype=np.float64)),
+        # rows 0..199 hold only their diagonal: no dependencies
+        "empty_strict_rows": lambda: _drop_strict(
+            datasets.lower_triangular(300, 5, seed=4), 200),
+        "long_rows": lambda: datasets.lower_triangular(600, 300, seed=5),
+    }
+
+
+def _unit(a, lower):
+    """``a`` with each row's strict entries scaled to an absolute sum of at
+    most 1/2 and the diagonal set to 1: a unit-diagonal factor whose solve
+    stays bounded (a random one grows without limit with its depth)."""
+    coo = a.tocoo()
+    strict = coo.col < coo.row if lower else coo.col > coo.row
+    sums = np.bincount(coo.row[strict], np.abs(coo.data[strict]),
+                       minlength=a.shape[0])
+    data = np.where(strict, coo.data / (2 * sums[coo.row] + 1e-30), 1.0)
+    return COO(a.shape, coo.row, coo.col, data.astype(np.float32)).tocsr()
+
+
+def _drop_strict(l, upto):
+    coo = l.tocoo()
+    keep = (coo.row >= upto) | (coo.row == coo.col)
+    return COO(l.shape, coo.row[keep], coo.col[keep], coo.data[keep]).tocsr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("name", list(_sptrsv_cases()))
+def test_sptrsv_kernel_vs_plain_on_card(cuda, name, lower, unit):
+    l = _sptrsv_cases()[name]()
+    a = l if lower else csr_transpose(l)
+    if unit:
+        a = _unit(a, lower)
+    op = skern.prepare(a, cuda, lower=lower, unit_diagonal=unit)
+    n = a.shape[0]
+    for k in (1, 3, 8, 11, 16, 20):
+        b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, k)).astype(np.float32)).to(cuda)
+        before = skern.LAUNCHES
+        got = skern.sptrsv_csr(op, b if k > 1 else b[:, 0].contiguous())
+        torch.cuda.synchronize()
+        assert skern.LAUNCHES == before + 1
+        got = got.view(n, k)
+        assert torch.isfinite(got).all()
+        want = skern.sptrsv_csr_reference(op, b)
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= KERNEL_TOL
+        assert rel_err(got.cpu().numpy(), sptrsm_golden(
+            a, b.cpu().numpy(), lower=lower, unit_diagonal=unit)) < 1e-3
+        if k <= 3 and n <= 400:
+            # the kernel's own order of work, emulated on the CPU
+            emu = skern.sptrsv_csr_emulate(op, b)
+            assert rel_err(got.cpu().numpy(), emu.cpu().numpy()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_sptrsv_kernel_repeats_bit_for_bit(cuda, k):
+    l = datasets.cholesky_factor(datasets.poisson2d_nd(60, dtype=np.float64))
+    for lower, a in ((True, l), (False, csr_transpose(l))):
+        op = skern.prepare(a, cuda, lower=lower)
+        b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (a.shape[0], k)).astype(np.float32)).to(cuda)
+        first = skern.sptrsv_csr(op, b)
+        for _ in range(20):
+            assert torch.equal(skern.sptrsv_csr(op, b), first)
+
+
+@pytest.mark.cuda
+def test_sptrsv_kernel_edges_on_card(cuda):
+    e = CSR((0, 0), np.zeros(1, np.int32), np.zeros(0, np.int32),
+            np.zeros(0, np.float32))
+    op = skern.prepare(e, cuda)
+    before = skern.LAUNCHES
+    assert skern.sptrsv_csr(op, torch.zeros(0, device=cuda)).shape == (0,)
+    assert skern.sptrsv_csr(op, torch.zeros((0, 4), device=cuda)).shape == \
+        (0, 4)
+    l = datasets.lower_triangular(50, 4, seed=1)
+    op = skern.prepare(l, cuda)
+    assert skern.sptrsv_csr(op, torch.zeros((50, 0), device=cuda)).shape == \
+        (50, 0)
+    assert skern.LAUNCHES == before
+    with pytest.raises(ValueError, match="is on"):
+        skern.sptrsv_csr(op, torch.zeros(50))
+
+
+@pytest.mark.cuda
+def test_sptrsv_main_paths_go_through_the_kernel(cuda):
+    l = datasets.cholesky_factor(datasets.poisson2d_nd(40, dtype=np.float64))
+    n = l.shape[0]
+    rng = np.random.default_rng(9)
+    b, bm = rng.standard_normal(n).astype(np.float32), \
+        rng.standard_normal((n, 8)).astype(np.float32)
+    before = skern.LAUNCHES
+    x = sblas_torch.sptrsv(l, b)
+    xt = sblas_torch.sptrsv(l, b, trans=True)
+    xm = sblas_torch.sptrsm(l, bm)
+    xc = sblas_torch.sptrsv(l.tocsc(), b, method="pallas")
+    torch.cuda.synchronize()
+    assert skern.LAUNCHES == before + 4
+    assert x.device.type == "cuda"
+    lt = csr_transpose(l)
+    assert rel_err(x.cpu().numpy(), sptrsv_golden(l, b)) < 1e-3
+    assert rel_err(xt.cpu().numpy(), sptrsv_golden(lt, b, lower=False)) < 1e-3
+    assert rel_err(xm.cpu().numpy(), sptrsm_golden(l, bm)) < 1e-3
+    assert rel_err(xc.cpu().numpy(), sptrsv_golden(l, b)) < 1e-3
+    # the Jacobi sweeps run the SpMV route its rule picks for E
+    before = kern.LAUNCHES + ckern.LAUNCHES
+    xj = sblas_torch.sptrsv(l, b, method="jacobi")
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES + ckern.LAUNCHES > before
+    assert rel_err(xj.cpu().numpy(), sptrsv_golden(l, b)) < 1e-3
 
 
 def test_timing_refuses_a_cpu_carry():

@@ -1,8 +1,10 @@
 """The port's own host layer against the JAX package's, on the same seeds.
 
 The port copies ``formats``, ``io``, ``datasets``, ``golden``, ``retile``,
-``retile_bsr``, ``reorder`` and ``hub_relabel`` (``relabel``) instead of
-importing them. These tests hold every copy
+``retile_bsr``, ``reorder``, ``hub_relabel`` (``relabel``) and
+``sptrsv_schedule`` instead of importing them, and computes the solves'
+dependency levels itself (``levels``, where the JAX package has a native
+sweep). These tests hold every copy
 to the original: the same generator seeds give the same arrays, the same
 retilings give the same layouts, and a matrix written by one package reads
 back identically in the other. No tolerance: the arrays must be equal.
@@ -22,13 +24,15 @@ import sblas
 import sblas_torch
 from sblas import datasets as ref_ds
 from sblas import golden as ref_golden
+from sblas import native as ref_native
+from sblas import sptrsv_schedule as ref_sched
 from sblas import io as ref_io
 from sblas import retile as ref_retile
 from sblas import reorder as ref_reorder
 from sblas import retile_bsr as ref_bsr
 from sblas.ops.kernels import spmv_pseg as ref_pseg
-from sblas_torch import (datasets, golden, io, relabel, reorder, retile,
-                         retile_bsr)
+from sblas_torch import (datasets, golden, io, levels, relabel, reorder,
+                         retile, retile_bsr, sptrsv_schedule)
 from sblas_torch.formats import CSC, CSR, from_reference
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -153,6 +157,77 @@ def test_hub_relabel_matches(name):
     assert relabel.HUB_COLS == ref_pseg.HUB_PANELS * ref_pseg.LANES
 
 
+TRIANGLES = {
+    "lower_triangular(band)": lambda d: d.lower_triangular(
+        500, 6, bandwidth=40, seed=2),
+    "lower_triangular(random)": lambda d: d.lower_triangular(300, 5, seed=3),
+    "cholesky_factor(poisson2d_nd(20))": lambda d: d.cholesky_factor(
+        d.poisson2d_nd(20, dtype=np.float64)),
+    "chain": lambda d: d.lower_triangular(64, 2, bandwidth=1, seed=0),
+}
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("name", list(TRIANGLES))
+def test_levels_match_the_native_sweep(name, lower):
+    r = TRIANGLES[name](ref_ds)
+    if not lower:
+        r = _ref_transpose(r)
+    p = from_reference(r)
+    lv, nl = levels.level_schedule(p.indptr, p.indices, p.shape[0],
+                                   lower=lower)
+    rlv, rnl = ref_native.level_schedule(r.indptr, r.indices, r.shape[0],
+                                         lower=lower)
+    assert lv.dtype == np.int32 and nl == rnl
+    np.testing.assert_array_equal(lv, rlv)
+    # the side not asked for is ignored: the full matrix gives the same
+    full = r.to_scipy() + r.to_scipy().T
+    fp = sblas_torch.CSR.from_scipy(full)
+    flv, fnl = levels.level_schedule(fp.indptr, fp.indices, fp.shape[0],
+                                     lower=lower)
+    assert fnl == rnl
+    np.testing.assert_array_equal(flv, rlv)
+
+
+def _ref_transpose(r):
+    from sblas.formats import csr_transpose
+
+    return csr_transpose(r)
+
+
+@pytest.mark.parametrize("tile_rows", [0, 8])
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("name", list(TRIANGLES))
+def test_level_schedule_matches(name, lower, tile_rows):
+    r = TRIANGLES[name](ref_ds)
+    if not lower:
+        r = _ref_transpose(r)
+    ps = sptrsv_schedule.build_level_schedule(from_reference(r), lower=lower,
+                                              tile_rows=tile_rows)
+    rs = ref_sched.build_level_schedule(r, lower=lower, tile_rows=tile_rows)
+    for f in ("n", "nnz", "tile_rows", "width", "nlevels", "num_tiles",
+              "padded_slots"):
+        assert getattr(ps, f) == getattr(rs, f), f
+    for f in ("slot_row", "col", "val", "inv_diag", "level_of_tile",
+              "levels"):
+        got, want = getattr(ps, f), getattr(rs, f)
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    sptrsv_schedule.validate_schedule(ps)
+
+
+def test_validate_schedule_finds_a_broken_schedule():
+    l = datasets.lower_triangular(64, 4, seed=1)
+    s = sptrsv_schedule.build_level_schedule(l, tile_rows=8)
+    broken = sptrsv_schedule.LevelSchedule(
+        **{**{f: getattr(s, f) for f in (
+            "n", "nnz", "tile_rows", "width", "nlevels", "col", "val",
+            "inv_diag", "level_of_tile", "levels")},
+           "slot_row": s.slot_row[::-1].copy()})
+    with pytest.raises(ValueError, match="dependencies"):
+        sptrsv_schedule.validate_schedule(broken)
+
+
 def test_mtx_round_trip_across_packages(tmp_path):
     a = datasets.random_csr(60, 45, 5, seed=9, dtype=np.float64)
     io.write_mtx(tmp_path / "a.mtx", a)
@@ -213,10 +288,14 @@ def test_from_reference_shares_the_arrays():
         from_reference(np.eye(3))
 
 
-@pytest.mark.parametrize("entry", ["SpmvPlan", "SpmmPlan", "spmv", "spmm"])
+@pytest.mark.parametrize("entry", ["SpmvPlan", "SpmmPlan", "spmv", "spmm",
+                                   "SptrsvPlan", "SptrsmPlan", "sptrsv",
+                                   "sptrsm"])
 def test_entry_points_refuse_the_reference_class(entry):
-    r = ref_ds.random_csr(16, 16, 3, seed=1)
-    x = np.ones((16, 2) if entry.startswith(("spmm", "SpmmPlan")) else 16,
+    r = ref_ds.random_csr(16, 16, 3, seed=1) if "trs" not in entry.lower() \
+        else ref_ds.lower_triangular(16, 3, seed=1)
+    x = np.ones((16, 2) if entry.startswith(("spmm", "SpmmPlan", "sptrsm",
+                                             "SptrsmPlan")) else 16,
                 np.float32)
     call = getattr(sblas_torch, entry)
     args = (r,) if entry[0] == "S" else (r, x)
@@ -248,6 +327,15 @@ assert golden.rel_err(sblas_torch.spmv(a, x[:, 0], device="cpu").numpy(),
 for method in ("block", "spmv_passes", "merge", "pseg", "pallas"):
     out = sblas_torch.spmm(a, x, method=method, device="cpu").numpy()
     assert golden.rel_err(out, golden.spmm_golden(a, x)) < 2e-5, method
+l = datasets.cholesky_factor(datasets.poisson2d_nd(12, dtype=np.float64))
+b = x[:l.shape[0]]
+for method in ("auto", "tiles", "jacobi"):
+    out = sblas_torch.sptrsv(l, b[:, 0], method=method, device="cpu").numpy()
+    assert golden.rel_err(out, golden.sptrsv_golden(l, b[:, 0])) < 2e-4
+    out = sblas_torch.sptrsm(l, b, trans=True, method=method,
+                             device="cpu").numpy()
+    assert golden.rel_err(out, golden.sptrsm_golden(
+        sblas_torch.csr_transpose(l), b, lower=False)) < 2e-4
 print("MODULES", sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "sblas")))
 """
