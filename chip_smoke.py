@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # from the root of the repository
 
 It builds the port's CUDA kernels from the sources in the checkout and
-holds each against its plain torch version on the card. It drives the three
-main paths a user calls, each with every kernel launch count set to 0 just
-before it and read just after:
+holds each against its plain torch version on the card (the f64 builds of
+the csr and solve kernels too). It drives the main paths a user calls,
+each with every kernel launch count set to 0 just before it and read just
+after:
 
 - SpMV (``sblas_torch.spmv``, ``method="auto"``, f32 ``y = alpha A x +
   beta y``, bf16 values, ``trans``) on the emulated SuiteSparse ``cant`` at
@@ -23,15 +24,28 @@ before it and read just after:
   the same Cholesky factor at 1M rows and 50M nonzeros: K = 1 and 8, and
   ``trans=True`` (the Cholesky backsolve); and ``method="jacobi"`` on
   ``band-parallel``;
+- f64 SpMV (BASELINE.json config 1: ``auto`` and ``method="pallas_ds"``,
+  ``y = A x / 3 - y / 2``, ``trans``) on ``cant`` and the FEM band, f64
+  SpMM (``auto``: ``spmv_passes``) on ``cant`` at K = 8, and the f64 solves
+  (``auto``: K = 1, 8 and the backsolve) on ``band-parallel`` and
+  ``chol-nd-poisson2d-1000``, all on the f64 builds of the kernels;
+- the Krylov solvers (``sblas_torch.solvers``): CG with Jacobi in f64 on a
+  1M-row Poisson grid to convergence, IC(0)-CG, ILU(0)-BiCGSTAB and
+  ILU(0)-GMRES(30) in f64 to convergence on 256 x 256 grids, and CG in f32
+  on the 1M-row grid;
 
 checks every result against scipy, and fails where the route the rule
-picked launched no kernel. It times each kernel beside its plain version,
-its bound (bytes at the card's data-sheet memory rate, or flops at its fp32
-rate), cuSPARSE and a STREAM triad, times the routes of each matrix
+picked launched no kernel (in f64: no f64 build). It times each kernel
+beside its plain version, its bound (bytes at the card's data-sheet memory
+rate, or flops at its rate for the type: fp32 or fp64), cuSPARSE and a
+STREAM triad, times the routes of each matrix
 against each other (``rule_picked``, ``faster_route``), times the SpMV
 csr kernel at every lanes-per-row width it takes (each width checked
-first), and times each solve beside its plain version, its bound, its ns
-per level and cuSPARSE's ``triangular_solve``. It imports only the port.
+first), times each solve beside its plain version, its bound, its ns
+per level and cuSPARSE's ``triangular_solve``, and times the solvers: ms
+per iteration, split into the SpMV, the two triangular solves and the rest
+(IC(0)-CG, ILU(0)-BiCGSTAB and ILU(0)-GMRES(30) for 30 iterations on the
+1M-row grids), with the true residual. It imports only the port.
 
 Output: one JSON line per phase; a ``{"kernels": [...]}`` line; the card's
 ``name, power.limit`` as nvidia-smi prints it; and last
@@ -67,11 +81,12 @@ def main() -> int:
 
     import sblas_torch
     from sblas_torch import datasets
-    from sblas_torch.bench_lib import (EPS, SOLVE_TOL, bench_spmm,
-                                       bench_spmv, bench_sptrsm,
+    from sblas_torch import solvers
+    from sblas_torch.bench_lib import (EPS, SOLVE_TOL, bench_solver,
+                                       bench_spmm, bench_spmv, bench_sptrsm,
                                        bench_sptrsv)
-    from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
-                                    spmv_golden, sptrsm_golden,
+    from sblas_torch.golden import (KERNEL_TOL, KERNEL_TOL_F64, rel_err,
+                                    spmm_golden, spmv_golden, sptrsm_golden,
                                     sptrsv_golden, value_tol)
     from sblas_torch.ops.common import as_csr, relabeled
     from sblas_torch.ops.kernels import _build
@@ -85,9 +100,9 @@ def main() -> int:
     from sblas_torch.ops.sptrsv import get_plan as sptrsv_plan
     from sblas_torch.retile_bsr import pack_bsr
     from sblas_torch.utils.backend import probe
-    from sblas_torch.utils.timing import (FP32_FLOPS, HBM_BYTES_PER_S,
+    from sblas_torch.utils.timing import (HBM_BYTES_PER_S,
                                           measure_seconds_per_iter,
-                                          stream_bandwidth)
+                                          peak_flops, stream_bandwidth)
 
     # the plain versions' products (torch.bmm) in full f32, stated
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,12 +110,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     f32_tol = value_tol(torch.float32)
+    # f64 SpMV and SpMM against scipy: the JAX package's ds class
+    f64_tol = 1e-13
     t_start = time.perf_counter()
-    kernels = {"spmv_csr": kern, "spmm_bsr": bkern, "spmm_csr": ckern,
-               "sptrsv_csr": skern}
+    # each kernel build's launch count: (wrapper module, counter)
+    kernels = {"spmv_csr": (kern, "LAUNCHES"),
+               "spmv_csr_f64": (kern, "LAUNCHES_F64"),
+               "spmm_bsr": (bkern, "LAUNCHES"),
+               "spmm_csr": (ckern, "LAUNCHES"),
+               "sptrsv_csr": (skern, "LAUNCHES"),
+               "sptrsv_csr_f64": (skern, "LAUNCHES_F64")}
+
+    def launched(kname):
+        mod, attr = kernels[kname]
+        return getattr(mod, attr)
 
     def vec(*shape):
         return rng.standard_normal(shape).astype(np.float32)
+
+    def vec64(*shape):
+        return rng.standard_normal(shape)
 
     def on_card(arr):
         return torch.from_numpy(arr).to(dev)
@@ -117,11 +146,10 @@ def main() -> int:
     lib = _build.build()
     _build.load()
     log = lib.with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text() if log.exists() else
-                                   "").splitlines() if "registers" in ln
-             or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name, "ptxas": ptxas})
+          "library": lib.name,
+          "ptxas": _build.ptxas_report(log.read_text() if log.exists()
+                                       else "")})
 
     # 3. the csr kernel vs its plain version on the card ----------------
     t0 = time.perf_counter()
@@ -144,17 +172,22 @@ def main() -> int:
         graph_gen_s[name] = time.perf_counter() - t0
     # the triangular factors of BASELINE.json config 3, as
     # benchmarks/run_suite.py builds them, and the nested-dissection
-    # Cholesky factor scaled up to 1M rows and 50M nonzeros
-    factors, factor_gen_s = {}, {}
+    # Cholesky factor scaled up to 1M rows and 50M nonzeros. Both generators
+    # compute in f64 and cast at the end, so the f32 factors are the f64
+    # ones cast: the same bits as generating them in f32
+    factors64, factor_gen_s = {}, {}
     t0 = time.perf_counter()
-    factors["band-parallel"] = datasets.lower_triangular(
-        62451, 30, bandwidth=4000, seed=1, dtype=np.float32)
+    factors64["band-parallel"] = datasets.lower_triangular(
+        62451, 30, bandwidth=4000, seed=1, dtype=np.float64)
     factor_gen_s["band-parallel"] = time.perf_counter() - t0
     for grid in (60, 120, 1000):
         t0 = time.perf_counter()
-        factors[f"chol-nd-poisson2d-{grid}"] = datasets.cholesky_factor(
-            datasets.poisson2d_nd(grid, dtype=np.float64), dtype=np.float32)
+        factors64[f"chol-nd-poisson2d-{grid}"] = datasets.cholesky_factor(
+            datasets.poisson2d_nd(grid, dtype=np.float64), dtype=np.float64)
         factor_gen_s[f"chol-nd-poisson2d-{grid}"] = time.perf_counter() - t0
+    factors = {name: l.astype(np.float32) for name, l in factors64.items()}
+    # the f64 matrices of the f64 paths: the f32 ones cast (exact)
+    cant64, fem64 = cant.astype(np.float64), fem.astype(np.float64)
     empty = sblas_torch.CSR((5, 7), np.zeros(6, np.int32),
                             np.zeros(0, np.int32), np.zeros(0, np.float32))
     cases = {
@@ -168,7 +201,7 @@ def main() -> int:
     }
     max_abs = {name: 0.0 for name in kernels}
 
-    def check_plain(kernel, label, got, want):
+    def check_plain(kernel, label, got, want, tol=KERNEL_TOL):
         torch.cuda.synchronize()
         g, w = got.cpu().numpy(), want.cpu().numpy()
         if g.shape != w.shape or not np.isfinite(g).all():
@@ -176,15 +209,17 @@ def main() -> int:
         err = rel_err(g, w)
         max_abs[kernel] = max(max_abs[kernel],
                               float(np.max(np.abs(g - w), initial=0.0)))
-        if not err <= KERNEL_TOL:
+        if not err <= tol:
             raise RuntimeError(f"{label}: kernel vs plain rel_err {err} > "
-                               f"{KERNEL_TOL}")
+                               f"{tol}")
         return err
 
     def against_plain(label, op, x, alpha, beta, yy):
-        return check_plain("spmv_csr", label,
+        f64 = op["data"].dtype == torch.float64
+        return check_plain("spmv_csr_f64" if f64 else "spmv_csr", label,
                            kern.spmv_csr(op, x, alpha, beta, yy),
-                           kern.spmv_csr_reference(op, x, alpha, beta, yy))
+                           kern.spmv_csr_reference(op, x, alpha, beta, yy),
+                           KERNEL_TOL_F64 if f64 else KERNEL_TOL)
 
     for name, a in cases.items():
         x = on_card(vec(a.shape[1]))
@@ -197,9 +232,19 @@ def main() -> int:
                 errs[label] = against_plain(f"{name} {label}", op, x, alpha,
                                             beta, yy)
             del op
+        # the f64 build: f64 values, x, y, alpha = 1/3 and beta
+        a64 = {"cant": cant64, "fem-band-1M-112M": fem64}.get(name)
+        op = kern.prepare(sblas_torch.to_device(
+            a.astype(np.float64) if a64 is None else a64, dev))
+        x64, y64 = on_card(vec64(a.shape[1])), on_card(vec64(a.shape[0]))
+        for alpha, beta, yy in ((1 / 3, -0.5, y64), (1.0, 0.0, None)):
+            label = f"float64,alpha={alpha:.4f}"
+            errs[label] = against_plain(f"{name} {label}", op, x64, alpha,
+                                        beta, yy)
+        del op, x64, y64
         emit({"phase": "kernel_vs_plain", "kernel": "spmv_csr",
               "matrix": name, "nnz": a.nnz, "tol": KERNEL_TOL,
-              "rel_err": errs})
+              "tol_f64": KERNEL_TOL_F64, "rel_err": errs})
 
     # 4. the block kernel vs its plain version on the card --------------
     def drop_rows(a, *spans):
@@ -290,48 +335,59 @@ def main() -> int:
               "max_rel_err": max(errs.values()), "cases": len(errs)})
 
     # 4c. the sync-free solve kernel vs its plain version on the card, on
-    # each factor, lower (L) and upper (L^T, the backsolve), K = 1 and 8;
-    # and the same bits on 20 repeats ------------------------------------
+    # each factor, lower (L) and upper (L^T, the backsolve), K = 1 and 8,
+    # in f32 and (its f64 build) f64; and the same bits on 20 repeats ----
     for name, l in factors.items():
         errs, nlevels, t0 = {}, {}, time.perf_counter()
-        for side, a, lower in (("L", l, True), ("L^T", as_csr(l, True),
-                                                False)):
-            op = sptrsv_plan(a, lower=lower)._op
-            for k in (1, 8):
-                b = on_card(vec(a.shape[0], k))
-                got = skern.sptrsv_csr(op, b)
-                errs[f"{side},K={k}"] = check_plain(
-                    "sptrsv_csr", f"{name} {side} K={k}", got,
-                    skern.sptrsv_csr_reference(op, b))
-                if k == 1:
-                    for _ in range(20):
-                        if not torch.equal(skern.sptrsv_csr(op, b), got):
-                            raise RuntimeError(f"{name} {side}: the solve "
-                                               "changed from run to run")
-            nlevels[side] = op["nlevels"]
-            del op, b, got
+        for fl, kname, tol, mk in (
+                (l, "sptrsv_csr", KERNEL_TOL, vec),
+                (factors64[name], "sptrsv_csr_f64", KERNEL_TOL_F64, vec64)):
+            for side, a, lower in (("L", fl, True),
+                                   ("L^T", as_csr(fl, True), False)):
+                op = sptrsv_plan(a, lower=lower)._op
+                for k in (1, 8):
+                    b = on_card(mk(a.shape[0], k))
+                    got = skern.sptrsv_csr(op, b)
+                    label = f"{side},K={k},{str(b.dtype)[6:]}"
+                    errs[label] = check_plain(
+                        kname, f"{name} {label}", got,
+                        skern.sptrsv_csr_reference(op, b), tol)
+                    if k == 1:
+                        for _ in range(20):
+                            if not torch.equal(skern.sptrsv_csr(op, b), got):
+                                raise RuntimeError(
+                                    f"{name} {label}: the solve changed "
+                                    "from run to run")
+                nlevels[side] = op["nlevels"]
+                del op, b, got
         emit({"phase": "sptrsv_kernel_vs_plain", "matrix": name,
               "n": l.shape[0], "nnz": l.nnz, "nlevels": nlevels,
               "longest_row": int(l.row_lengths.max(initial=0)),
-              "tol": KERNEL_TOL, "rel_err": errs, "repeats_bit_equal": 20,
-              "seconds": time.perf_counter() - t0})
+              "tol": KERNEL_TOL, "tol_f64": KERNEL_TOL_F64, "rel_err": errs,
+              "repeats_bit_equal": 20, "seconds": time.perf_counter() - t0})
 
     # 5. the main paths, through the user's entry points: the route is the
     # rule's pick, and each call must launch that route's kernel ---------
-    by_route = {"csr": kern, "rcm": kern, "merge": ckern, "pseg": ckern,
-                "block": bkern}
+    by_route = {"csr": "spmv_csr", "rcm": "spmv_csr", "merge": "spmm_csr",
+                "pseg": "spmm_csr", "block": "spmm_bsr",
+                "syncfree": "sptrsv_csr"}
+
+    def route_kernel(plan):
+        """The counter of the kernel build ``plan``'s route launches."""
+        route = plan._spmv.method if plan.method == "spmv_passes" \
+            else plan.method
+        kname = by_route[route]
+        return kname + "_f64" if plan.dtype == torch.float64 else kname
 
     def check(res, name, label, call, plan_of, ref, tol):
-        before = {mod: mod.LAUNCHES for mod in kernels.values()}
+        before = {k: launched(k) for k in kernels}
         out = call()
         torch.cuda.synchronize()
         plan = plan_of()
-        route = plan._spmv.method if plan.method == "spmv_passes" \
-            else plan.method
-        mod = by_route[route]
-        if mod.LAUNCHES == before[mod]:
+        kname = route_kernel(plan)
+        if launched(kname) == before[kname]:
             raise RuntimeError(f"{name} {label}: route {plan.method!r} "
-                               f"({plan.route_reason}) launched no kernel")
+                               f"({plan.route_reason}) launched no {kname}")
         got = out.cpu().numpy()
         if got.shape != ref.shape or not np.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: bad output")
@@ -340,7 +396,7 @@ def main() -> int:
             raise RuntimeError(f"{name} {label}: rel_err vs scipy {err} "
                                f">= {tol}")
         res[label] = {"rel_err": err, "tol": tol, "method": plan.method,
-                      "route_reason": plan.route_reason}
+                      "kernel": kname, "route_reason": plan.route_reason}
 
     def spmv_main_path(name, a):
         m, n = a.shape
@@ -394,12 +450,12 @@ def main() -> int:
               "checks": res})
 
     def reset():
-        for mod in kernels.values():
-            mod.LAUNCHES = 0
+        for mod, attr in kernels.values():
+            setattr(mod, attr, 0)
 
     def counts():
         torch.cuda.synchronize()
-        return {name: mod.LAUNCHES for name, mod in kernels.items()}
+        return {name: launched(name) for name in kernels}
 
     # a band matrix with scrambled numbering: what rcm is for
     base = datasets.random_csr(100_000, 100_000, 40, bandwidth=60, seed=21,
@@ -454,53 +510,71 @@ def main() -> int:
         spmm_main_path(name, a, 8, set(), method="block")
 
     # 5c. the triangular solves: sptrsv and sptrsm (auto: the sync-free
-    # kernel), the Cholesky backsolve (trans), and the Jacobi sweeps -------
-    solve_tol = SOLVE_TOL[np.dtype(np.float32)]
-
-    def check_solve(res, name, label, call, plan, ref, mod):
-        before = mod.LAUNCHES
+    # kernel), the Cholesky backsolve (trans), and the Jacobi sweeps. One
+    # right-hand side per factor, made in f64, and one scipy golden of the
+    # f64 factor per input: the f32 path solves the same b cast to f32 ----
+    def check_solve(res, name, label, call, plan, ref, kname, tol):
+        before = launched(kname)
         t0 = time.perf_counter()
         out = call()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        if mod.LAUNCHES == before:
+        if launched(kname) == before:
             raise RuntimeError(f"{name} {label}: route {plan.method!r} "
-                               f"({plan.route_reason}) launched no kernel")
+                               f"({plan.route_reason}) launched no {kname}")
         got = out.cpu().numpy()
         if got.shape != ref.shape or not np.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: bad output")
         err = rel_err(got, ref)
-        if not err < solve_tol:
+        if not err < tol:
             raise RuntimeError(f"{name} {label}: rel_err vs scipy {err} "
-                               f">= {solve_tol}")
-        res[label] = {"rel_err": err, "tol": solve_tol, "method": plan.method,
+                               f">= {tol}")
+        res[label] = {"rel_err": err, "tol": tol, "method": plan.method,
+                      "kernel": kname,
                       "route_reason": getattr(plan, "route_reason", None),
                       "nlevels": plan.nlevels, "seconds": seconds}
 
-    reset()
-    for name, l in factors.items():
+    goldens = {}
+    t0 = time.perf_counter()
+    for name, l in factors64.items():
         n = l.shape[0]
-        b, bm = vec(n), vec(n, 8)
+        b, bm = vec64(n), vec64(n, 8)
+        goldens[name] = {
+            "b": b, "bm": bm, "K=1": sptrsv_golden(l, b),
+            "K=8": sptrsm_golden(l, bm),
+            "trans K=1": sptrsv_golden(as_csr(l, True), b, lower=False)}
+    solve_golden_s = time.perf_counter() - t0
+
+    def solve_main_path(name, l, dtype):
+        g = goldens[name]
+        b, bm = g["b"].astype(dtype), g["bm"].astype(dtype)
         lt = as_csr(l, True)
+        tol = SOLVE_TOL[np.dtype(dtype)]
+        kname = "sptrsv_csr_f64" if dtype == np.float64 else "sptrsv_csr"
         res, t0 = {}, time.perf_counter()
         check_solve(res, name, "K=1", lambda: sblas_torch.sptrsv(l, b),
-                    sptrsv_plan(l), sptrsv_golden(l, b), skern)
+                    sptrsv_plan(l), g["K=1"], kname, tol)
         check_solve(res, name, "K=8", lambda: sblas_torch.sptrsm(l, bm),
-                    sptrsv_plan(l), sptrsm_golden(l, bm), skern)
+                    sptrsv_plan(l), g["K=8"], kname, tol)
         check_solve(res, name, "trans K=1",
                     lambda: sblas_torch.sptrsv(l, b, trans=True),
-                    sptrsv_plan(lt, lower=False),
-                    sptrsv_golden(lt, b, lower=False), skern)
+                    sptrsv_plan(lt, lower=False), g["trans K=1"], kname, tol)
         emit({"phase": "main_path", "path": "sptrsv", "matrix": name,
-              "n": n, "nnz": l.nnz, "seconds": time.perf_counter() - t0,
-              "checks": res})
+              "dtype": np.dtype(dtype).name, "n": l.shape[0], "nnz": l.nnz,
+              "seconds": time.perf_counter() - t0, "checks": res})
+
+    reset()
+    for name, l in factors.items():
+        solve_main_path(name, l, np.float32)
     bp = factors["band-parallel"]
-    b = vec(bp.shape[0])
+    b = goldens["band-parallel"]["b"].astype(np.float32)
     res = {}
     check_solve(res, "band-parallel", "jacobi K=1",
                 lambda: sblas_torch.sptrsv(bp, b, method="jacobi"),
-                sptrsv_plan(bp, method="jacobi"), sptrsv_golden(bp, b),
-                by_route[sptrsv_plan(bp, method="jacobi")._e.method])
+                sptrsv_plan(bp, method="jacobi"),
+                goldens["band-parallel"]["K=1"],
+                by_route[sptrsv_plan(bp, method="jacobi")._e.method],
+                SOLVE_TOL[np.dtype(np.float32)])
     emit({"phase": "main_path", "path": "sptrsv", "matrix": "band-parallel",
           "checks": res,
           "sweeps": sptrsv_plan(bp, method="jacobi").sweeps})
@@ -510,6 +584,120 @@ def main() -> int:
         raise RuntimeError("the solves' main path never launched sptrsv_csr")
     launches = {name: launches[name] + sptrsv_launches[name]
                 for name in kernels}
+
+    # 5d. f64 (BASELINE.json config 1): SpMV through auto and pallas_ds by
+    # name, y = A x / 3 - y / 2 and trans, on cant and the FEM band; SpMM
+    # (auto: spmv_passes) on cant at K = 8; the solves (auto) on
+    # band-parallel and chol-nd-poisson2d-1000. Each call must launch the
+    # f64 build of its kernel --------------------------------------------
+    def spmv64_main_path(name, a):
+        m, n = a.shape
+        x, y0, xt = vec64(n), vec64(m), vec64(m)
+        at = as_csr(a, True)
+        ref = spmv_golden(a, x, 1 / 3, -0.5, y0)     # one golden per input
+        res, t0 = {}, time.perf_counter()
+        check(res, name, "f64 alpha=1/3, beta=-1/2",
+              lambda: sblas_torch.spmv(a, x, 1 / 3, -0.5, y0),
+              lambda: _get_plan(a, "auto"), ref, f64_tol)
+        check(res, name, "pallas_ds alpha=1/3, beta=-1/2",
+              lambda: sblas_torch.spmv(a, x, 1 / 3, -0.5, y0,
+                                       method="pallas_ds"),
+              lambda: _get_plan(a, "pallas_ds"), ref, f64_tol)
+        check(res, name, "f64 trans",
+              lambda: sblas_torch.spmv(a, xt, trans=True),
+              lambda: _get_plan(at, "auto"), spmv_golden(at, xt), f64_tol)
+        emit({"phase": "main_path", "path": "spmv", "matrix": name,
+              "dtype": "float64", "nnz": a.nnz,
+              "seconds": time.perf_counter() - t0, "checks": res})
+
+    reset()
+    for name, a in (("cant", cant64), ("fem-band-1M-112M", fem64)):
+        spmv64_main_path(name, a)
+    x, y0 = vec64(cant64.shape[1], 8), vec64(cant64.shape[0], 8)
+    res = {}
+    check(res, "cant", "f64 K=8 alpha=1/3, beta=-1/2",
+          lambda: sblas_torch.spmm(cant64, x, 1 / 3, -0.5, y0, k_hint=8),
+          lambda: spmm_plan(cant64, "auto", k_hint=8),
+          spmm_golden(cant64, x, 1 / 3, -0.5, y0), f64_tol)
+    emit({"phase": "main_path", "path": "spmm", "matrix": "cant",
+          "dtype": "float64", "k": 8, "checks": res})
+    for name in ("band-parallel", "chol-nd-poisson2d-1000"):
+        solve_main_path(name, factors64[name], np.float64)
+    f64_launches = counts()
+    emit({"phase": "launches", "path": "f64", **f64_launches})
+    for kname in ("spmv_csr_f64", "sptrsv_csr_f64"):
+        if f64_launches[kname] == 0:
+            raise RuntimeError(f"the f64 main path never launched {kname}")
+    launches = {name: launches[name] + f64_launches[name]
+                for name in kernels}
+
+    # 5e. the solvers, through sblas_torch.solvers: CG + Jacobi in f64 on
+    # the 1M-row Poisson grid to convergence; IC(0)-CG, ILU(0)-BiCGSTAB
+    # and ILU(0)-GMRES(30) in f64 to convergence on 256 x 256 grids; CG in
+    # f32 on the 1M-row grid. Each checked by its true residual (scipy,
+    # f64) -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    grid = {np.float64: datasets.poisson2d(1000, dtype=np.float64)}
+    grid[np.float32] = grid[np.float64].astype(np.float32)
+    small = {"poisson2d(256)": datasets.poisson2d(256, dtype=np.float64),
+             "convection_diffusion(256)": datasets.convection_diffusion(
+                 256, dtype=np.float64)}
+    solver_gen_s = time.perf_counter() - t0
+
+    def check_solver(res, label, solve, a, b, tol, limit, **kw):
+        t0 = time.perf_counter()
+        x, info = solve(a, b, tol=tol, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        xs = x.cpu().numpy().astype(np.float64)
+        b64 = np.asarray(b, dtype=np.float64)
+        true = float(np.linalg.norm(b64 - a.to_scipy().astype(np.float64)
+                                    @ xs) / np.linalg.norm(b64))
+        if xs.shape != b64.shape or not np.isfinite(xs).all():
+            raise RuntimeError(f"{label}: bad solution")
+        if not (info["rel_residual"] < tol and true <= limit):
+            raise RuntimeError(f"{label}: {info}, true residual {true} > "
+                               f"{limit}")
+        res[label] = {**info, "true_rel_residual": true, "tol": tol,
+                      "limit": limit, "seconds": seconds,
+                      "ms_per_iter": 1e3 * seconds
+                      / max(info["iterations"], 1)}
+
+    reset()
+    res = {}
+    b1m = vec64(grid[np.float64].shape[0])
+    check_solver(res, "cg+jacobi f64 poisson2d(1000)", solvers.cg,
+                 grid[np.float64], b1m, 1e-8, 2e-8, maxiter=20000,
+                 M=solvers.jacobi(grid[np.float64]))
+    b256 = vec64(small["poisson2d(256)"].shape[0])
+    p256, c256 = small["poisson2d(256)"], small["convection_diffusion(256)"]
+    m_ic, m_ilu = solvers.ichol(p256), solvers.ilu(c256)
+    check_solver(res, "ic0-cg f64 poisson2d(256)", solvers.cg, p256, b256,
+                 1e-8, 2e-8, maxiter=5000, M=m_ic)
+    check_solver(res, "ilu0-bicgstab f64 convection_diffusion(256)",
+                 solvers.bicgstab, c256, b256, 1e-8, 2e-8, maxiter=5000,
+                 M=m_ilu)
+    check_solver(res, "ilu0-gmres(30) f64 convection_diffusion(256)",
+                 solvers.gmres, c256, b256, 1e-8, 2e-8, maxiter=5000,
+                 restart=30, M=m_ilu)
+    check_solver(res, "cg f32 poisson2d(1000)", solvers.cg,
+                 grid[np.float32], b1m.astype(np.float32), 1e-4, 1e-3,
+                 maxiter=20000)
+    emit({"phase": "main_path", "path": "solvers", "checks": res,
+          "levels": {"ic0 poisson2d(256)": [m_ic.fwd.nlevels,
+                                            m_ic.bwd.nlevels],
+                     "ilu0 convection_diffusion(256)": [
+                         m_ilu.fwd.nlevels, m_ilu.bwd.nlevels]},
+          "generate_s": solver_gen_s})
+    solver_launches = counts()
+    emit({"phase": "launches", "path": "solvers", **solver_launches})
+    for kname in ("spmv_csr", "spmv_csr_f64", "sptrsv_csr_f64"):
+        if solver_launches[kname] == 0:
+            raise RuntimeError(f"the solvers' main path never launched "
+                               f"{kname}")
+    launches = {name: launches[name] + solver_launches[name]
+                for name in kernels}
+    del m_ic, m_ilu
 
     # the csr SpMV route by name on the graphs' rows of 10^5+ nonzeros, with
     # this run's random x (outside the launch windows)
@@ -526,9 +714,9 @@ def main() -> int:
 
     # 6. SpMV timing: the csr kernel, the nnz-balanced one, their plain
     # versions, cuSPARSE and the bound ------------------------------------
-    def bound_us(nbytes, flops):
+    def bound_us(nbytes, flops, dtype=np.float32):
         bytes_s = nbytes / HBM_BYTES_PER_S
-        flops_s = flops / FP32_FLOPS
+        flops_s = flops / peak_flops(dtype)
         return max(bytes_s, flops_s) * 1e6, \
             "bytes" if bytes_s >= flops_s else "operations"
 
@@ -549,7 +737,7 @@ def main() -> int:
 
     timings = {}
     for name, a in (("cant", cant), ("fem-band-1M-112M", fem)):
-        rec = bench_spmv(a, method="csr", ratio_pairs=5, device=dev)
+        rec = bench_spmv(a, method="csr", ratio_pairs=3, device=dev)
         rec16 = bench_spmv(a, method="csr", value_dtype=torch.bfloat16,
                            device=dev, baseline=False)
         merge = bench_spmv(a, method="merge", device=dev, baseline=False)
@@ -566,7 +754,8 @@ def main() -> int:
             sblas_torch.spmv(a, x0)
         torch.cuda.synchronize()
         eager = (time.perf_counter() - t0) / 200
-        bound = max(rec.bytes / HBM_BYTES_PER_S, rec.flops / FP32_FLOPS)
+        bound = max(rec.bytes / HBM_BYTES_PER_S,
+                    rec.flops / peak_flops(a.dtype))
         kernel_us, merge_us = rec.seconds_per_iter * 1e6, \
             merge.seconds_per_iter * 1e6
         timings[name] = {"kernel_us": kernel_us, "plain_us": plain,
@@ -589,6 +778,56 @@ def main() -> int:
               "rel_err": rec.extra["rel_err"],
               "ratio_pairs": rec.extra["ratio_pairs"]})
         del t, x0
+
+    # 6a. f64: the csr kernel's f64 build (auto's route) on cant and the FEM
+    # band, its plain version, cuSPARSE's f64 addmv and the bound (12 B a
+    # nonzero, 8 B vectors, fp64 rate); uk-2002@0.05 in f64, the csr
+    # kernel against the torch bucket route; SpMM on cant at K = 8 (auto:
+    # spmv_passes) against the torch bsr route and cuSPARSE's f64 addmm --
+    for name, a in (("cant", cant64), ("fem-band-1M-112M", fem64)):
+        rec = bench_spmv(a, method="csr", ratio_pairs=3, device=dev)
+        t = sblas_torch.to_device(a, dev)
+        x0 = on_card(vec64(a.shape[1]))
+        plain = us(lambda x, x0: kern.spmv_csr_reference(t, x, EPS, 1.0, x0),
+                   x0)
+        bound, by = bound_us(rec.bytes, rec.flops, np.float64)
+        timings[name + " f64"] = {
+            "kernel_us": rec.seconds_per_iter * 1e6, "plain_us": plain,
+            "bound_us": bound, "bound_by": by,
+            "cusparse_us": rec.extra["baseline_us"]}
+        emit({"phase": "timing", "kernel": "spmv_csr_f64", "matrix": name,
+              "card": card, **timings[name + " f64"],
+              "kernel_gbps": rec.gbps, "pct_stream": rec.extra["pct_stream"],
+              "stream_gbps": rec.extra["stream_gbps"],
+              "bytes_per_iter": rec.bytes,
+              "rule_picked": _get_plan(a, "auto").method,
+              "route_reason": _get_plan(a, "auto").route_reason,
+              "rel_err": rec.extra["rel_err"],
+              "ratio_pairs": rec.extra["ratio_pairs"]})
+        del t, x0
+    uk64 = graphs["uk-2002@0.05"].astype(np.float64)
+    routes = {r: bench_spmv(uk64, method=r, device=dev, baseline=False)
+              for r in ("csr", "bucket")}
+    route_times = {r: rec.seconds_per_iter * 1e6 for r, rec in routes.items()}
+    emit({"phase": "timing", "kernel": "spmv_csr_f64", "matrix":
+          "uk-2002@0.05", "card": card, "route_us": route_times,
+          "bound_us": bound_us(routes["csr"].bytes, routes["csr"].flops,
+                               np.float64)[0],
+          "rule_picked": _get_plan(uk64, "auto").method,
+          "faster_route": min(route_times, key=route_times.get),
+          "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
+    del uk64, routes
+    rec = bench_spmm(cant64, 8, method="auto", device=dev)
+    bsr = bench_spmm(cant64, 8, method="bsr", device=dev, baseline=False)
+    emit({"phase": "spmm_timing", "matrix": "cant", "dtype": "float64",
+          "k": 8, "card": card, "method": rec.extra["method"],
+          "kernel_us": rec.seconds_per_iter * 1e6,
+          "bound_us": rec.extra["bound_us"], "bound_by": rec.extra["bound_by"],
+          "cusparse_us": rec.extra["baseline_us"],
+          "bsr_us": bsr.seconds_per_iter * 1e6,
+          "kernel_gbps": rec.gbps, "pct_stream": rec.extra["pct_stream"],
+          "rel_err": rec.extra["rel_err"]})
+    del rec, bsr
 
     # 6b. the graphs: the nnz-balanced kernel in natural order (the merge
     # route auto runs) and hub-relabeled (the pseg operand), its plain
@@ -724,7 +963,10 @@ def main() -> int:
     solve_timings = {}
     # the plain version runs ~8 torch calls a level: one and two solves
     solve_few = {"iters_lo": 1, "iters_hi": 2, "repeats": 1}
-    for name, l in factors.items():
+    solve_rows = [(name, l, vec) for name, l in factors.items()]
+    solve_rows += [(name + " f64", factors64[name], vec64)
+                   for name in ("band-parallel", "chol-nd-poisson2d-1000")]
+    for name, l, mk in solve_rows:
         lt = as_csr(l, True)
         # on the default device: the plans the main path built and cached
         recs = {"K=1": bench_sptrsv(l), "K=8": bench_sptrsm(l, 8),
@@ -734,7 +976,7 @@ def main() -> int:
                                               baseline=False)
         op = sptrsv_plan(l)._op
         plain_us = {k: us(lambda x, b0: skern.sptrsv_csr_reference(
-            op, b0 + EPS * x), on_card(vec(l.shape[0], k)), **solve_few)
+            op, b0 + EPS * x), on_card(mk(l.shape[0], k)), **solve_few)
             for k in (1, 8)}
         del op
         rows = {}
@@ -754,36 +996,80 @@ def main() -> int:
             plain_us[8]
         solve_timings[name] = rows
         emit({"phase": "sptrsv_timing", "matrix": name, "card": card,
-              "n": l.shape[0], "nnz": l.nnz, **rows})
+              "dtype": np.dtype(l.dtype).name, "n": l.shape[0],
+              "nnz": l.nnz, **rows})
 
-    # 8. lanes-per-row sweep on cant: every width the csr kernel takes,
-    # each checked against the plain version before it is timed (an earlier
-    # sweep of the FEM band found G = 8 fastest there too) ----------------
-    for name, a in (("cant", cant),):
-        x = on_card(vec(a.shape[1]))
-        y = on_card(vec(a.shape[0]))
-        for vd in (torch.float32, torch.bfloat16):
-            op = kern.prepare(sblas_torch.to_device(a, dev, vd))
-            sweep, errs = {}, {}
-            for g in kern.GROUPS:
-                opg = {**op, "group": g}
-                errs[g] = against_plain(f"{name} {vd} G={g}", opg, x, 2.5,
-                                        -0.5, y)
-                sweep[g] = us(lambda c, x0: kern.spmv_csr(opg, c, EPS, 1.0,
-                                                          x0), x)
-            emit({"phase": "group_sweep", "matrix": name, "card": card,
-                  "values": str(vd)[6:], "rule_group": op["group"],
-                  "us": sweep, "rel_err": errs})
-            del op
-        del x, y
+    # 7c. the solvers: CG + Jacobi in f64 on the 1M-row grid to
+    # convergence, and IC(0)-CG (the same grid), ILU(0)-BiCGSTAB and
+    # ILU(0)-GMRES(30) (convection_diffusion(1000)) in f64 for 30 iterations
+    # each (a cut depth): ms per iteration split into the SpMV, the two
+    # triangular solves and the rest, the kernels' share of the wall time,
+    # and the reported residual against the true one --------------------
+    solver_timings = {}
+    c1m = datasets.convection_diffusion(1000, dtype=np.float64)
+    p1m = grid[np.float64]
+    runs = [("cg+jacobi", solvers.cg, p1m, solvers.jacobi(p1m),
+             {"tol": 1e-8, "maxiter": 20000}),
+            ("ic0-cg", solvers.cg, p1m, solvers.ichol(p1m),
+             {"tol": 0.0, "maxiter": 30}),
+            ("ilu0-bicgstab", solvers.bicgstab, c1m, solvers.ilu(c1m),
+             {"tol": 0.0, "maxiter": 30}),
+            ("ilu0-gmres(30)", solvers.gmres, c1m, None,
+             {"tol": 0.0, "maxiter": 30, "restart": 30})]
+    for label, solve, a, m_, kw in runs:
+        if m_ is None:          # GMRES shares BiCGSTAB's ILU(0) factor
+            m_ = runs[2][3]
+        row = bench_solver(solve, a, b1m, M=m_, **kw)
+        agree = abs(row["rel_residual"] - row["true_rel_residual"]) / \
+            row["true_rel_residual"]
+        if kw["tol"] and not row["true_rel_residual"] <= 2 * kw["tol"]:
+            raise RuntimeError(f"{label}: true residual "
+                               f"{row['true_rel_residual']}")
+        if not kw["tol"] and not agree <= 1e-6:
+            raise RuntimeError(f"{label}: reported residual "
+                               f"{row['rel_residual']} against the true "
+                               f"{row['true_rel_residual']}")
+        row["residual_agreement"] = agree
+        solver_timings[label] = row
+        emit({"phase": "solver_timing", "solver": label, "card": card,
+              "matrix": "poisson2d(1000)" if a is p1m
+              else "convection_diffusion(1000)", **row})
+    del runs
+
+    # 8. lanes-per-row sweep: every width the csr kernel takes, on cant in
+    # f32, bf16 and f64 and on the FEM band in f64 (an earlier f32 sweep of
+    # the band found G = 8 fastest there too), each width checked against
+    # the plain version before it is timed -------------------------------
+    sweeps = [("cant", cant, vd) for vd in (torch.float32, torch.bfloat16)]
+    sweeps += [("cant", cant64, torch.float64),
+               ("fem-band-1M-112M", fem64, torch.float64)]
+    for name, a, vd in sweeps:
+        mk = vec64 if vd == torch.float64 else vec
+        x, y = on_card(mk(a.shape[1])), on_card(mk(a.shape[0]))
+        op = kern.prepare(sblas_torch.to_device(a, dev, vd))
+        sweep, errs = {}, {}
+        for g in kern.GROUPS:
+            opg = {**op, "group": g}
+            errs[g] = against_plain(f"{name} {vd} G={g}", opg, x, 2.5, -0.5,
+                                    y)
+            sweep[g] = us(lambda c, x0: kern.spmv_csr(opg, c, EPS, 1.0, x0),
+                          x)
+        emit({"phase": "group_sweep", "matrix": name, "card": card,
+              "values": str(vd)[6:], "rule_group": op["group"],
+              "us": sweep, "rel_err": errs})
+        del op, x, y
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "suite_generate_s": suite_gen_s, "fem_generate_s": fem_gen_s,
           "graph_generate_s": graph_gen_s, "relabel_s": relabel_s,
-          "factor_generate_s": factor_gen_s})
+          "factor_generate_s": factor_gen_s,
+          "solve_golden_s": solve_golden_s,
+          "solver_generate_s": solver_gen_s})
     main = spmm_timings[("consph", 8, 128)]
     tw = graph_timings[("twitter7@0.02", 8)]
     big = solve_timings["chol-nd-poisson2d-1000"]["K=1"]
+    big64 = solve_timings["chol-nd-poisson2d-1000 f64"]["K=1"]
+    cant_f64 = timings["cant f64"]
     emit({"kernels": [
         {"name": "spmv_csr", "route": "cuda",
          "source": "sblas_torch/csrc/spmv_csr.cu",
@@ -825,7 +1111,29 @@ def main() -> int:
          "bound_ms": big["bound_us"] / 1e3, "bound_by": big["bound_by"],
          "library_ms": None if big["cusparse_us"] is None
          else big["cusparse_us"] / 1e3,
-         "shape": "chol-nd-poisson2d-1000 (1M rows, 50.2M nnz) f32, K=1"}]})
+         "shape": "chol-nd-poisson2d-1000 (1M rows, 50.2M nnz) f32, K=1"},
+        {"name": "spmv_csr_f64", "route": "cuda",
+         "source": "sblas_torch/csrc/spmv_csr.cu",
+         "replaces": "sblas/ops/kernels/spmv_wsell_ds.py:80",
+         "launches": launches["spmv_csr_f64"],
+         "max_abs_err": max_abs["spmv_csr_f64"],
+         "ms": cant_f64["kernel_us"] / 1e3,
+         "plain_ms": cant_f64["plain_us"] / 1e3,
+         "bound_ms": cant_f64["bound_us"] / 1e3,
+         "bound_by": cant_f64["bound_by"],
+         "library_ms": cant_f64["cusparse_us"] / 1e3,
+         "shape": "cant f64"},
+        {"name": "sptrsv_csr_f64", "route": "cuda",
+         "source": "sblas_torch/csrc/sptrsv_csr.cu",
+         "replaces": ["sblas/ops/kernels/sptrsv_ds.py:65",
+                      "sblas/ops/kernels/sptrsv_ds.py:159"],
+         "launches": launches["sptrsv_csr_f64"],
+         "max_abs_err": max_abs["sptrsv_csr_f64"],
+         "ms": big64["us"] / 1e3, "plain_ms": big64["plain_us"] / 1e3,
+         "bound_ms": big64["bound_us"] / 1e3, "bound_by": big64["bound_by"],
+         "library_ms": None if big64["cusparse_us"] is None
+         else big64["cusparse_us"] / 1e3,
+         "shape": "chol-nd-poisson2d-1000 (1M rows, 50.2M nnz) f64, K=1"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

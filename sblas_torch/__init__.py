@@ -5,6 +5,7 @@
     Y = sblas_torch.spmm(A, X, k_hint=X.shape[1])
     x = sblas_torch.sptrsv(L, b, lower=True, trans=False)
     X = sblas_torch.sptrsm(L, B)
+    x, info = sblas_torch.solvers.cg(A, b, M=sblas_torch.solvers.ichol(A))
 
 The host layer (formats, Matrix Market I/O, dataset generators, scipy
 goldens, ELL and block retiling) is the port's own: copies of the JAX
@@ -32,7 +33,7 @@ __all__ = [
     "datasets", "golden", "levels", "relabel", "reorder", "retile",
     "retile_bsr", "sptrsv_schedule", "to_device",
     "spmv", "SpmvPlan", "spmm", "SpmmPlan",
-    "sptrsv", "SptrsvPlan", "sptrsm", "SptrsmPlan",
+    "sptrsv", "SptrsvPlan", "sptrsm", "SptrsmPlan", "solvers",
 ]
 
 _LAZY = {"spmv": ".ops.spmv", "SpmvPlan": ".ops.spmv",
@@ -43,8 +44,10 @@ _LAZY = {"spmv": ".ops.spmv", "SpmvPlan": ".ops.spmv",
 
 def __getattr__(name):
     # lazy: the plans pull in the kernel wrappers
-    if name in _LAZY:
-        import importlib
+    import importlib
 
+    if name == "solvers":
+        return importlib.import_module(".solvers", __name__)
+    if name in _LAZY:
         return getattr(importlib.import_module(_LAZY[name], __name__), name)
     raise AttributeError(f"module 'sblas_torch' has no attribute {name!r}")

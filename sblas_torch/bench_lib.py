@@ -1,6 +1,6 @@
-"""SpMV, SpMM and triangular-solve benchmarks on the card: the port of
-``sblas/bench_lib.py:bench_spmv``, ``bench_spmm``, ``bench_sptrsv`` and
-``bench_sptrsm``.
+"""SpMV, SpMM, triangular-solve and solver benchmarks on the card: the port
+of ``sblas/bench_lib.py:bench_spmv``, ``bench_spmm``, ``bench_sptrsv`` and
+``bench_sptrsm``, and :func:`bench_solver`.
 
 The step is the plan's own ``Y = alpha A X + beta Y`` with ``alpha = 1e-30``,
 ``beta = 1`` and ``Y = X0``: it returns ``X0 + 1e-30 A X``, numerically
@@ -16,10 +16,14 @@ and its time is set by their latency more than by its bytes.
 
 Beside the plan, the same step runs through ``torch.sparse_csr_tensor``
 (cuSPARSE: ``addmv`` for SpMV, ``addmm`` for SpMM, ``triangular_solve`` for
-the solves) as ``baseline``: a measurement, never a route.
+the solves) as ``baseline``: a measurement, never a route. Operation bounds
+take the card's rate for the type the work is done in (``peak_flops``: fp64
+for f64, fp32 otherwise).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -27,13 +31,14 @@ import torch
 from .formats import CSR, as_torch_dtype
 from .golden import (rel_err, spmm_golden, spmv_golden, sptrsv_golden,
                      value_tol)
+from .ops.kernels import spmv_csr, sptrsv_csr
 from .ops.spmm import SpmmPlan
 from .ops.spmv import SpmvPlan
 from .ops.sptrsm import SptrsmPlan
 from .ops.sptrsv import get_plan as sptrsv_plan
-from .utils.timing import (FP32_FLOPS, HBM_BYTES_PER_S, BenchRecord,
+from .utils.timing import (HBM_BYTES_PER_S, BenchRecord,
                            measure_eager_seconds, measure_seconds_per_iter,
-                           stream_bandwidth)
+                           peak_flops, stream_bandwidth)
 
 # keeps the carry numerically equal to x0 while each iteration depends on
 # the one before (tiny * y underflows against x0)
@@ -131,8 +136,8 @@ def bench_spmm(a: CSR, k: int = 8, *, method: str = "auto", value_dtype=None,
     ``flops`` is the useful work, ``2 nnz k``; ``extra["bound_us"]`` the
     least time the card could take for the plan's work: its bytes over the
     card's data-sheet memory rate (``HBM_BYTES_PER_S``), or the flops it
-    executes (every stored block entry for the block routes) over its fp32
-    rate (``FP32_FLOPS``), whichever is larger.
+    executes (every stored block entry for the block routes) over its rate
+    for the matrix's dtype (``peak_flops``), whichever is larger.
     """
     m, n = a.shape
     if m != n:
@@ -150,7 +155,7 @@ def bench_spmm(a: CSR, k: int = 8, *, method: str = "auto", value_dtype=None,
     per = _time(lambda x, x0: plan(x, EPS, 1.0, x0), x0, nbytes, dev,
                 ratio_pairs, extra)
     bytes_s = nbytes / HBM_BYTES_PER_S
-    flops_s = plan.flops_per_call(k) / FP32_FLOPS
+    flops_s = plan.flops_per_call(k) / peak_flops(a.dtype)
     extra["bound_us"] = max(bytes_s, flops_s) * 1e6
     extra["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
     if baseline:
@@ -204,7 +209,7 @@ def _bench_solve(name: str, l: CSR, plan, b0_np: np.ndarray, dev,
     extra["levels_per_s"] = plan.nlevels / per
     extra["ns_per_level"] = per * 1e9 / max(plan.nlevels, 1)
     bytes_s = nbytes / HBM_BYTES_PER_S
-    flops_s = 2.0 * l.nnz * k / FP32_FLOPS
+    flops_s = 2.0 * l.nnz * k / peak_flops(l.dtype)
     extra["bound_us"] = max(bytes_s, flops_s) * 1e6
     extra["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
     if baseline:
@@ -218,9 +223,10 @@ def bench_sptrsv(l: CSR, *, lower: bool = True, method: str = "auto",
     """One SpTRSV record on a CUDA device, validated against scipy first
     (``SOLVE_TOL``; ``jacobi`` runs its exact ``nlevels - 1`` sweeps).
     ``extra["bound_us"]``: the plan's bytes over the card's data-sheet
-    memory rate, or ``2 nnz`` flops over its fp32 rate, whichever is
-    larger. The plan comes from the plan cache, so that ``sptrsv`` and
-    :func:`bench_sptrsm` of the same matrix share its analysis."""
+    memory rate, or ``2 nnz`` flops over its rate for the factor's dtype,
+    whichever is larger. The plan comes from the plan cache, so that
+    ``sptrsv`` and :func:`bench_sptrsm` of the same matrix share its
+    analysis."""
     dev = _cuda(device, "bench_sptrsv")
     # the caller's device only where it gave one: then the plan is the one
     # sptrsv(l, b) builds and caches
@@ -248,3 +254,72 @@ def bench_sptrsm(l: CSR, k: int = 8, *, lower: bool = True,
                        plan.bytes_per_iter(k), k, baseline)
     rec.extra["k"] = k
     return rec
+
+
+def _launches() -> tuple[int, int]:
+    """Launches so far of the csr SpMV kernel and of the solve kernel, both
+    builds."""
+    return (spmv_csr.LAUNCHES + spmv_csr.LAUNCHES_F64,
+            sptrsv_csr.LAUNCHES + sptrsv_csr.LAUNCHES_F64)
+
+
+def bench_solver(solver, a: CSR, b: np.ndarray, *, M=None, device=None,
+                 **kw) -> dict:
+    """One solve ``solver(plan, b, M=M, **kw)`` on a CUDA device (``solver``
+    is :func:`~sblas_torch.solvers.cg`, ``bicgstab`` or ``gmres``; ``plan``
+    the SpMV ``auto`` plan of ``a``), and what it cost.
+
+    Returns its ``iterations`` and reported ``rel_residual``, the true
+    relative residual ``||b - A x|| / ||b||`` through scipy in f64, the wall
+    time (host clock, ended by a synchronize) and ms per iteration, and the
+    share of that wall time the kernels account for: the SpMV plan's
+    graph-timed call and, for a :class:`~sblas_torch.solvers.TriangularPair`
+    ``M`` of solve plans, each solve's graph-timed call, times the launches
+    the solve made (counted by the kernels' wrappers). The rest of each
+    iteration is the vector operations, the host's Python and its reads.
+    """
+    from .solvers import TriangularPair
+
+    dev = _cuda(device, "bench_solver")
+    plan = SpmvPlan(a, "auto", device=dev)
+    b0 = torch.from_numpy(np.asarray(b, dtype=a.dtype)).to(dev)
+    spmv_us = 1e6 * measure_seconds_per_iter(
+        lambda x, x0: plan(x, EPS, 1.0, x0), b0, b0)
+    solve_us = {}
+    if isinstance(M, TriangularPair):
+        # a solve of a 1M-row natural-order factor takes ~0.25 s on the
+        # H100: one marginal sample of one against two solves resolves it
+        for side, sp in (("fwd", M.fwd), ("bwd", M.bwd)):
+            solve_us[side] = 1e6 * measure_seconds_per_iter(
+                lambda x, y0, sp=sp: sp(y0 + EPS * x), b0, b0,
+                iters_lo=1, iters_hi=2, repeats=1)
+            solve_us[side + "_nlevels"] = sp.nlevels
+    torch.cuda.synchronize(dev)
+    before = _launches()
+    t0 = time.perf_counter()
+    x, info = solver(plan, b0, M=M, **kw)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    spmv_n, solve_n = (after - pre for after, pre in zip(_launches(), before))
+    b64 = np.asarray(b, dtype=np.float64)
+    true = float(np.linalg.norm(
+        b64 - a.to_scipy().astype(np.float64) @ x.cpu().numpy()
+        .astype(np.float64)) / max(np.linalg.norm(b64), 1e-30))
+    it = max(info["iterations"], 1)
+    ms = {"spmv": spmv_n * spmv_us / 1e3 / it}
+    if solve_us:
+        # each application of M is one forward and one backward solve
+        ms["fwd_solve"] = solve_n / 2 * solve_us["fwd"] / 1e3 / it
+        ms["bwd_solve"] = solve_n / 2 * solve_us["bwd"] / 1e3 / it
+    kernel_ms = sum(ms.values())
+    ms["rest"] = wall * 1e3 / it - kernel_ms
+    return {"iterations": info["iterations"],
+            "rel_residual": info["rel_residual"],
+            "true_rel_residual": true, "wall_s": wall,
+            "ms_per_iter": wall * 1e3 / it, "ms_per_iter_split": ms,
+            "kernel_share": kernel_ms * it / (wall * 1e3),
+            "spmv_us": spmv_us, "spmv_launches": spmv_n,
+            "solve_us": solve_us, "solve_launches": solve_n,
+            "method": plan.method, "dtype": str(np.dtype(a.dtype)),
+            "n": a.shape[0], "nnz": a.nnz,
+            "device": torch.cuda.get_device_name(dev)}

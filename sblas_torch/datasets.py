@@ -92,6 +92,31 @@ def poisson2d(nx: int, ny: Optional[int] = None, dtype=np.float32) -> CSR:
     )
 
 
+def convection_diffusion(nx: int, eps: float = 0.01,
+                         dtype=np.float32) -> CSR:
+    """Upwind 5-point stencil for -eps*lap(u) + u_x + u_y on an nx x nx
+    grid (Dirichlet). Strongly nonsymmetric for small eps: the test matrix
+    of ILU(0), GMRES and BiCGSTAB (the JAX package's
+    ``examples/convection_ilu.py``, built in f64 and cast to ``dtype``)."""
+    import scipy.sparse as sp
+
+    n = nx * nx
+    h = 1.0 / (nx + 1)
+    main = np.full(n, 4 * eps / h**2 + 2 / h)
+    west = np.full(n - 1, -eps / h**2 - 1 / h)
+    east = np.full(n - 1, -eps / h**2)
+    south = np.full(n - nx, -eps / h**2 - 1 / h)
+    north = np.full(n - nx, -eps / h**2)
+    # no coupling across grid-row boundaries
+    edge = np.arange(1, n) % nx == 0
+    west[edge] = 0.0
+    east[edge] = 0.0
+    s = sp.diags([main, west, east, south, north],
+                 [0, -1, 1, -nx, nx]).tocsr()
+    s.sort_indices()
+    return CSR.from_scipy(s).astype(dtype)
+
+
 def nd_permutation_grid(nx: int, ny: Optional[int] = None) -> np.ndarray:
     """Nested-dissection elimination order for an nx-by-ny grid graph.
 

@@ -254,6 +254,14 @@ def triu(a: CSR, k: int = 0) -> CSR:
     return COO(a.shape, coo.row[mask], coo.col[mask], coo.data[mask]).tocsr()
 
 
+def has_full_diagonal(a: CSR) -> bool:
+    """True iff every row i (i < min(shape)) stores an explicit (i, i) entry."""
+    m = min(a.shape)
+    coo = a.tocoo()
+    diag_rows = np.unique(coo.row[coo.row == coo.col])
+    return len(diag_rows) == m
+
+
 def from_reference(a):
     """The port's CSR or CSC holding the same arrays as ``a``.
 

@@ -12,12 +12,13 @@ import torch
 
 from .formats import CSR, as_torch_dtype
 
-__all__ = ["KERNEL_TOL", "default_tol", "rel_err", "spmm_golden",
+__all__ = ["KERNEL_TOL", "KERNEL_TOL_F64", "default_tol", "rel_err", "spmm_golden",
            "spmv_golden", "sptrsm_golden", "sptrsv_golden", "value_tol"]
 
 # a CUDA kernel against its plain torch version: the same f32 products,
-# summed in another order
+# summed in another order; the f64 builds, the same in f64
 KERNEL_TOL = 2e-5
+KERNEL_TOL_F64 = 1e-12
 
 
 def spmv_golden(a: CSR, x, alpha: float = 1.0, beta: float = 0.0, y=None):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -102,6 +103,30 @@ def build(src_dir: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
         lib.with_suffix(".log").write_text("".join(logs))
         os.replace(so, lib)
     return lib
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel's registers and spills from the ``-Xptxas -v`` output
+    that :func:`build` keeps: ``{"kernel", "registers", "spill_stores",
+    "spill_loads"}`` (bytes), the kernel named by its mangled name less the
+    anonymous namespace and the parameter list (``15sptrsv_syncfreeIdLi16E``
+    is ``sptrsv_syncfree<double, 16>``)."""
+    out, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            name, spill = m.group(1), (0, 0)
+            # _ZN<len><the anonymous namespace's name><the kernel's name>
+            if ns := re.match(r"_ZN(\d+)_GLOBAL__N_", name):
+                name = name[ns.end(1) + int(ns.group(1)):]
+            name = name.split("EEv")[0]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", ln):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_stores": spill[0], "spill_loads": spill[1]})
+            name = None
+    return out
 
 
 def load() -> ctypes.CDLL:

@@ -1,12 +1,15 @@
 """Sync-free triangular-solve kernel wrapper: the port of the JAX package's
 two wavefront kernels (``sblas/ops/kernels/sptrsv_pallas.py:_kernel`` and
-``:_kernel_m``), one kernel here.
+``:_kernel_m``), one kernel here, and in its f64 build of the f64-class
+solves of ``sblas/ops/kernels/sptrsv_ds.py`` (f32 wavefront solves refined
+through double-single residual SpMVs), which it computes in f64 directly.
 
-:func:`prepare` checks a host triangular CSR once (square, f32 values, a
-full nonzero diagonal unless ``unit_diagonal``), computes its dependency
-levels (:func:`sblas_torch.levels.level_schedule`) and uploads the matrix
-with ``inv_diag``. :func:`sptrsv_csr` then computes ``x = op(L)^{-1} b``
-for f32 ``b`` of shape ``(n,)`` or row-major ``(n, K)``. On CUDA tensors it
+:func:`prepare` checks a host triangular CSR once (square, f32 or f64
+values, a full nonzero diagonal unless ``unit_diagonal``), computes its
+dependency levels (:func:`sblas_torch.levels.level_schedule`) and uploads
+the matrix with ``inv_diag`` in the values' dtype. :func:`sptrsv_csr` then
+computes ``x = op(L)^{-1} b`` for ``b`` of the values' dtype, of shape
+``(n,)`` or row-major ``(n, K)``. On CUDA tensors it
 launches the hand-written kernel of ``sblas_torch/csrc/sptrsv_csr.cu`` (see
 the note there); on CPU tensors it runs :func:`sptrsv_csr_reference`, the
 plain torch version, level by level. There is no fallback from one to the
@@ -19,13 +22,15 @@ call takes from torch's caching allocator and the kernel clears on the
 launch's stream: two solves on two streams never share them, and a solve
 can be captured in a CUDA graph.
 
-``LAUNCHES`` counts kernel launches, so that a run can show its main path
-went through the kernel.
+``LAUNCHES`` counts launches of the f32 build, ``LAUNCHES_F64`` those of
+the f64 build, so that a run can show which build its main path went
+through.
 """
 
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -36,12 +41,16 @@ from ...sptrsv_schedule import diagonal
 from ._build import entry
 
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 
-_SYMBOL = "sblas_sptrsv_csr_f32"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n k lower
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # indptr..values
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # inv_diag b x
              ctypes.c_void_p, ctypes.c_void_p]                   # flags stream
+# value dtype -> (C symbol, its argument types: pointers and ints only, the
+# same for both builds)
+_SYMBOLS = {torch.float32: ("sblas_sptrsv_csr_f32", _ARGTYPES),
+            torch.float64: ("sblas_sptrsv_csr_f64", _ARGTYPES)}
 WARP = 32       # lanes a row takes (csrc/sptrsv_csr.cu)
 
 
@@ -51,13 +60,13 @@ def prepare(l: CSR, device, *, lower: bool = True,
     ``device`` (``to_device``'s ``shape``/``indptr``/``indices``/``data``),
     plus ``inv_diag`` (f32, 1 for ``unit_diagonal``), ``lower``, and the
     host ``levels``/``nlevels`` the plain version walks. Raises
-    ``ValueError`` for a matrix that is not square or not f32, or a missing
-    or zero diagonal entry."""
+    ``ValueError`` for a matrix that is not square or not f32 or f64, or a
+    missing or zero diagonal entry."""
     n, n2 = l.shape
     if n != n2:
         raise ValueError(f"sptrsv needs a square matrix, got {l.shape}")
-    if check_uploadable(l) != torch.float32:
-        raise ValueError(f"the sync-free kernel takes f32 values, got "
+    if check_uploadable(l) not in _SYMBOLS:
+        raise ValueError(f"the sync-free kernel takes f32 or f64 values, got "
                          f"{l.dtype}; use method='tiles'")
     if l.nnz and int(l.indices.max()) >= n:
         # a column past the last row would send the kernel's wait to a
@@ -66,7 +75,7 @@ def prepare(l: CSR, device, *, lower: bool = True,
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"sptrsv_csr runs on cuda or cpu, not {device}")
-    inv_diag = (1.0 / diagonal(l, unit_diagonal)).astype(np.float32)
+    inv_diag = (1.0 / diagonal(l, unit_diagonal)).astype(l.dtype)
     levels, nlevels = level_schedule(l.indptr, l.indices, n, lower=lower)
     return {**to_device(l, device), "inv_diag": upload(inv_diag, device),
             "lower": bool(lower), "levels": levels, "nlevels": nlevels}
@@ -75,9 +84,11 @@ def prepare(l: CSR, device, *, lower: bool = True,
 def _as_2d(op: dict, b: torch.Tensor) -> torch.Tensor:
     n, _ = op["shape"]
     dev = op["indptr"].device
-    if b.dtype != torch.float32 or b.dim() not in (1, 2) or b.shape[0] != n:
-        raise ValueError(f"b must be f32 of shape ({n},) or ({n}, K), got "
-                         f"{b.dtype} {tuple(b.shape)}")
+    dt = op["data"].dtype
+    if b.dtype != dt or b.dim() not in (1, 2) or b.shape[0] != n:
+        short = "f64" if dt == torch.float64 else "f32"
+        raise ValueError(f"b must be {short} of shape ({n},) or ({n}, K), "
+                         f"got {b.dtype} {tuple(b.shape)}")
     if b.device != dev:
         raise ValueError(f"b is on {b.device}, the matrix on {dev}")
     if not b.is_contiguous():
@@ -86,12 +97,13 @@ def _as_2d(op: dict, b: torch.Tensor) -> torch.Tensor:
 
 
 def sptrsv_csr(op: dict, b: torch.Tensor) -> torch.Tensor:
-    """``x = op(L)^{-1} b`` for the operand ``op`` of :func:`prepare`, f32
-    ``b`` of shape ``(n,)`` or ``(n, K)``; ``x`` has ``b``'s shape.
+    """``x = op(L)^{-1} b`` for the operand ``op`` of :func:`prepare`, ``b``
+    of the values' dtype and shape ``(n,)`` or ``(n, K)``; ``x`` has ``b``'s
+    shape.
 
     The kernel launches on the current stream of the tensors' device, which
     must be the current device."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     n, _ = op["shape"]
     b2 = _as_2d(op, b)
     dev = b2.device
@@ -102,7 +114,7 @@ def sptrsv_csr(op: dict, b: torch.Tensor) -> torch.Tensor:
     if n == 0 or k == 0:
         return out.view(b.shape)
     flags = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    fn, err = entry(_SYMBOL, _ARGTYPES)
+    fn, err = entry(*_SYMBOLS[b2.dtype])
     rc = fn(n, k, int(op["lower"]), op["indptr"].data_ptr(),
             op["indices"].data_ptr(), op["data"].data_ptr(),
             op["inv_diag"].data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -110,7 +122,10 @@ def sptrsv_csr(op: dict, b: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"sptrsv_csr launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")
-    LAUNCHES += 1
+    if b2.dtype == torch.float64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return out.view(b.shape)
 
 
@@ -148,13 +163,13 @@ def _plain_operand(op: dict) -> dict:
 def sptrsv_csr_reference(op: dict, b: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel: level by level, one gather of
     ``x``, one ``index_add_`` of the products and one scale per level. Each
-    row's sum is taken in f64 and ``x`` is rounded to f32 once per row, as
-    the kernel stores it."""
+    row's sum is taken in f64 and ``x`` is rounded to the values' dtype once
+    per row, as the kernel stores it (no rounding in f64)."""
     n, _ = op["shape"]
     b2 = _as_2d(op, b)
     w = _plain_operand(op)
     k = b2.shape[1]
-    x = torch.zeros((n, k), dtype=torch.float32, device=b2.device)
+    x = torch.zeros((n, k), dtype=b2.dtype, device=b2.device)
     acc = torch.zeros((n, k), dtype=torch.float64, device=b2.device)
     inv = op["inv_diag"]
     rp, ep = w["row_ptr"], w["ent_ptr"]
@@ -165,40 +180,50 @@ def sptrsv_csr_reference(op: dict, b: torch.Tensor) -> torch.Tensor:
                            * x[w["cols"][e0:e1]].double())
         rs = w["rows_by_level"][rp[lvl]:rp[lvl + 1]]
         x[rs] = ((b2[rs].double() - acc[rs])
-                 * inv[rs, None].double()).float()
+                 * inv[rs, None].double()).to(x.dtype)
     return x.view(b.shape)
+
+
+def _fma(a, b, c, dtype):
+    """``a * b + c`` rounded once to ``dtype``: exact in rationals for f64
+    (``int / int`` in Python rounds correctly), through f64 for f32 (which
+    can differ from one rounding in rare ties)."""
+    if dtype == np.float64:
+        return float(Fraction(float(a)) * Fraction(float(b))
+                     + Fraction(float(c)))
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
 def sptrsv_csr_emulate(op: dict, b: torch.Tensor) -> torch.Tensor:
     """The kernel's order of work on the CPU, for tiny matrices: rows in
     ticket order (``0..n-1`` lower, ``n-1..0`` upper); lane ``l`` of 32 sums
     the row's ``l``-th, ``l+32``-th, ... entry (forward for lower, backward
-    for upper) with f32 fused multiply-adds; a shuffle tree adds the 32
-    sums (lane ``i`` takes lane ``i + off`` for off = 16 .. 1); then
-    ``x = (b - sum) * inv_diag`` in f32. The fused multiply-add is taken in
-    f64 and rounded to f32, which can differ from one rounding in rare
-    ties."""
+    for upper) with fused multiply-adds in the values' dtype (:func:`_fma`);
+    a shuffle tree adds the 32 sums (lane ``i`` takes lane ``i + off`` for
+    off = 16 .. 1); then ``x = (b - sum) * inv_diag``."""
     n, _ = op["shape"]
     b2 = _as_2d(op, b).cpu().numpy()
     k = b2.shape[1]
+    dt = b2.dtype
     indptr = op["indptr"].cpu().numpy()
     indices = op["indices"].cpu().numpy()
     data = op["data"].cpu().numpy()
     inv = op["inv_diag"].cpu().numpy()
     lower = op["lower"]
-    x = np.zeros((n, k), dtype=np.float32)
+    x = np.zeros((n, k), dtype=dt)
     for t in range(n):
         row = t if lower else n - 1 - t
         ents = np.arange(indptr[row], indptr[row + 1])
         if not lower:
             ents = ents[::-1]
-        acc = np.zeros((WARP, k), dtype=np.float32)
+        acc = np.zeros((WARP, k), dtype=dt)
         for lane in range(WARP):
             for j in ents[lane::WARP]:
                 c = indices[j]
                 if (c < row) if lower else (c > row):
-                    acc[lane] = (np.float64(data[j]) * x[c].astype(np.float64)
-                                 + acc[lane]).astype(np.float32)
+                    for p in range(k):
+                        acc[lane, p] = _fma(data[j], x[c, p], acc[lane, p],
+                                            dt)
         off = WARP // 2
         while off:
             acc[:off] = acc[:off] + acc[off:2 * off]

@@ -26,13 +26,18 @@ Routes (``method=``, or ``'auto'``):
                       the relabeling is the identity. On the H100 the
                       relabeled order made the kernel no faster (PERF.md).
 - ``'spmv_passes'`` — K launches of the port's SpMV ``auto`` plan, one per
-                      column of X, as in the JAX package.
+                      column of X, as in the JAX package; on an f64 matrix
+                      the csr kernel's f64 build.
+- ``'pallas_ds'``   — the ``'spmv_passes'`` plan of an f64 matrix: the JAX
+                      package's ds SpMM is K double-single SpMV passes, and
+                      SpMV's ``'pallas_ds'`` is the csr kernel's f64 build
+                      here. An f32 matrix raises ``ValueError``.
 - ``'ell'``, ``'bucket'``, ``'bsr'`` — plain torch ports of the JAX
                       package's XLA routes of the same names, any value dtype.
 
-The kernel routes take f32 matrices, values f32 or bf16 (``value_dtype=``);
-on CPU tensors their wrappers run the kernels' plain torch versions.
-``'pallas_ds'`` raises ``NotImplementedError`` until its kernel is ported.
+The ``block``, ``merge`` and ``pseg`` kernels take f32 matrices, values
+f32 or bf16 (``value_dtype=``); on CPU tensors their wrappers run the
+kernels' plain torch versions.
 
 ``'auto'`` for f32 matrices (values f32 or bf16), on every device, is a
 bytes rule over three prices at ``k_hint`` (default 8) columns
@@ -43,9 +48,10 @@ gathers ``K`` floats of X a nonzero, of which the share ``X_GATHER`` costs
 device-memory bytes (the rest hits in L2; the constant from H100 timings,
 PERF.md); ``'spmv_passes'`` streams the CSR matrix K times. The cheapest
 wins; ``'block'`` only where, on CUDA, its blocks fit in half of the free
-device memory. For f64 it is the JAX package's XLA heuristic, so that both
-packages pick the same route. The route is fixed when the plan is built: a
-kernel launch that fails raises, and no other route is tried.
+device memory. For f64 it is ``'spmv_passes'`` (the csr kernel's f64
+build; the other kernels have no f64 build yet), and for other dtypes
+(complex) the JAX package's XLA heuristic. The route is fixed when the plan
+is built: a kernel launch that fails raises, and no other route is tried.
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ from .spmv import xla_heuristic as spmv_xla_heuristic
 
 ROUTES = ("block", "merge", "pallas", "pseg", "spmv_passes", "ell",
           "bucket", "bsr")
-NOT_PORTED = ("pallas_ds",)
+# every route of the JAX package has its counterpart here
+NOT_PORTED = ()
 K_HINT = 8
 # what one byte of the X rows the nnz-balanced kernel gathers (K floats a
 # nonzero) costs, in streamed bytes. Its time on the FEM matrices, less its
@@ -114,9 +121,15 @@ class SpmmPlan:
         self.block_rows = block_rows
         if method == "auto":
             method, self.route_reason = self._pick(a, value_dtype)
-        elif method in NOT_PORTED:
-            raise NotImplementedError(
-                f"spmm method {method!r} is not ported to sblas_torch yet")
+        elif method == "pallas_ds":
+            if a.dtype != np.float64:
+                raise ValueError(f"pallas_ds is the f64 path, got {a.dtype}; "
+                                 "use method='spmv_passes' for f32")
+            method = "spmv_passes"
+            self.route_reason = (
+                "method='pallas_ds' requested: 'spmv_passes' over the csr "
+                "kernel's f64 build (the JAX package's ds SpMM is K "
+                "double-single SpMV passes)")
         elif method == "pallas":
             method = "merge"
             self.route_reason = (
@@ -193,25 +206,33 @@ class SpmmPlan:
                                               bsr.br, a.data.itemsize)
 
     @staticmethod
-    def prices(a: CSR, k: int, block_rows: int = 128,
-               val_bytes: int = 4) -> dict:
-        """Bytes each f32 route moves for ``k`` columns by the rule's model,
-        X in and Y out included: ``{"block", "merge", "spmv_passes"}``, and
-        the block stream alone as ``"block_stream"``."""
+    def prices(a: CSR, k: int, block_rows: int = 128, val_bytes: int = 4,
+               vec_bytes: int = 4) -> dict:
+        """Bytes each route moves for ``k`` columns by the rule's model, X
+        in and Y out included (``vec_bytes`` an entry: 4 in f32, 8 in
+        f64): ``{"block", "merge", "spmv_passes"}``, and the block stream
+        alone as ``"block_stream"``."""
         m, n = a.shape
         br = block_rows
         st = bsr_stats(a, br=br, bc=BLOCK_COLS)
         stream = block_stream_bytes(st["nblocks"], -(-max(m, 1) // br), br,
                                     val_bytes)
-        xy = (n + m) * k * 4
+        xy = (n + m) * k * vec_bytes
         return {"block": stream + xy, "block_stream": stream,
                 "density": st["density"],
                 "merge": csr_stream_bytes(m, a.nnz, val_bytes)
-                + int(X_GATHER * a.nnz * k * 4) + xy,
+                + int(X_GATHER * a.nnz * k * vec_bytes) + xy,
                 "spmv_passes": k * csr_bytes_per_iter(m, n, a.nnz,
-                                                      val_bytes)}
+                                                      val_bytes, vec_bytes)}
 
     def _pick(self, a: CSR, value_dtype) -> tuple[str, str]:
+        if a.dtype == np.float64:
+            ref, why = xla_heuristic(a)
+            return "spmv_passes", (
+                "auto: float64 values -> spmv_passes (the csr kernel's f64 "
+                "build, a column a launch; the block and nnz-balanced "
+                f"kernels have no f64 build; the JAX package's auto runs its "
+                f"XLA {ref!r} route: {why})")
         if a.dtype != np.float32:
             method, why = xla_heuristic(a)
             return method, f"auto: {a.dtype} -> {method} ({why})"

@@ -4,7 +4,19 @@ Routes (``method=``, or ``'auto'``):
 
 - ``'csr'``      — the hand-written CUDA csr-vector kernel
                    (``kernels/spmv_csr.py``), the counterpart of the JAX
-                   package's ``'pallas'`` route: G lanes a row.
+                   package's ``'pallas'`` route: G lanes a row. Its f64
+                   build takes f64 matrices.
+- ``'pallas_ds'`` — the ``'csr'`` plan of an f64 matrix. The JAX package's
+                   double-single planes (``spmv_wsell_ds.py``) exist because
+                   Mosaic has no f64; Hopper has native FP64, so the f64
+                   build computes the same product in IEEE f64, at least as
+                   accurate as the ds error model (~max_deg * 2^-48). The
+                   JAX package's ds limits (w-SELL fill below 0.2, x tables
+                   above 12 MB) are VMEM limits and are not copied: any f64
+                   matrix takes it. An f32 matrix raises ``ValueError``, as
+                   in the JAX package.
+- ``'bsr'``      — the SpMM ``'bsr'`` plan (plain torch over 128 x 128
+                   blocks, the JAX package's XLA block route) at K = 1.
 - ``'merge'``    — the hand-written CUDA nnz-balanced (merge-path) kernel
                    (``kernels/spmm_csr.py``), through the SpMM ``'merge'``
                    plan at K = 1. It splits long rows across warps, so
@@ -21,17 +33,21 @@ Routes (``method=``, or ``'auto'``):
 - ``'coo'``, ``'ell'``, ``'bucket'`` — plain torch ports of the JAX
                    package's XLA routes of the same names, any value dtype.
 
-The kernel routes take f32 matrices, values f32 or bf16 (``value_dtype=``);
-on CPU tensors their wrappers run the kernels' plain torch versions.
+The ``merge`` and ``pseg`` kernels take f32 matrices, values f32 or bf16
+(``value_dtype=``); ``csr`` and ``rcm`` also take f64 matrices (f64 values,
+``x`` and ``y``). On CPU tensors the wrappers run the kernels' plain torch
+versions.
 
 ``'auto'`` for f32 matrices picks between ``'csr'`` and ``'merge'`` by the
 longest row: the csr kernel walks a row of L nonzeros in L / G serial steps
 of its lane group, and when that walk would outlast both the
 nnz-balanced kernel's walk of one share and the whole CSR stream at the
 card's rate, ``'merge'`` (:func:`f32_rule`; its constants from H100
-timings, PERF.md). It never picks ``'pseg'`` or ``'rcm'``. For other
-dtypes (f64) it is the JAX package's ELL/bucket heuristic. The JAX package's ``'bsr'`` and
-``'pallas_ds'`` are not ported yet and raise ``NotImplementedError``.
+timings, PERF.md). It never picks ``'pseg'`` or ``'rcm'``. For f64 matrices
+it picks ``'csr'`` (the f64 build), also on power-law rows where
+:func:`f32_rule` would pick ``'merge'``: the nnz-balanced kernel has no f64
+build yet. For other dtypes (complex) it is the JAX package's ELL/bucket
+heuristic.
 """
 
 from __future__ import annotations
@@ -51,8 +67,10 @@ from .kernels import spmm_csr, spmv_csr
 # dies with the CSR it was built for
 _PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-ROUTES = ("csr", "merge", "pseg", "pseg_big", "rcm", "coo", "ell", "bucket")
-NOT_PORTED = ("bsr", "pallas_ds")
+ROUTES = ("csr", "merge", "pseg", "pseg_big", "rcm", "coo", "ell", "bucket",
+          "bsr")
+# every route of the JAX package has its counterpart here
+NOT_PORTED = ()
 
 # the csr kernel's time for one serial step of a lane group (its time on a
 # graph over the longest row's steps: 116 ns on uk-2002 at 5%, 152 on
@@ -68,10 +86,11 @@ def csr_stream_bytes(m: int, nnz: int, val_bytes: int) -> int:
     return nnz * (val_bytes + 4) + (m + 1) * 4
 
 
-def csr_bytes_per_iter(m: int, n: int, nnz: int, val_bytes: int) -> int:
+def csr_bytes_per_iter(m: int, n: int, nnz: int, val_bytes: int,
+                       vec_bytes: int = 4) -> int:
     """Bytes one ``csr`` SpMV moves: the CSR stream, ``x`` in and ``y`` out
-    (f32)."""
-    return csr_stream_bytes(m, nnz, val_bytes) + n * 4 + m * 4
+    (``vec_bytes`` each entry: 4 in f32, 8 in f64)."""
+    return csr_stream_bytes(m, nnz, val_bytes) + (n + m) * vec_bytes
 
 
 def f32_rule(a: CSR, val_bytes: int = 4) -> tuple[str, str]:
@@ -93,6 +112,17 @@ def f32_rule(a: CSR, val_bytes: int = 4) -> tuple[str, str]:
                     f"{walk_us:.1f} us {'>' if method == 'merge' else '<='} "
                     f"max(a share's walk {share_us:.1f} us, the CSR stream "
                     f"{stream_us:.1f} us) -> {method}")
+
+
+def f64_reason(a: CSR) -> str:
+    """Why ``auto`` runs an f64 matrix on the ``csr`` kernel's f64 build:
+    what the f32 rule and the JAX package would pick instead."""
+    why = "auto: float64 values -> csr (the csr kernel's f64 build"
+    f32_pick, _ = f32_rule(a)
+    if f32_pick != "csr":
+        why += f"; the f32 rule would pick {f32_pick}, which has no f64 build"
+    ref, _ = xla_heuristic(a)
+    return why + f"; the JAX package's auto runs its XLA {ref!r} route)"
 
 
 def xla_heuristic(a: CSR) -> tuple[str, str]:
@@ -124,12 +154,21 @@ class SpmvPlan:
                 vb = as_torch_dtype(value_dtype or torch.float32).itemsize
                 method, why = f32_rule(a, vb)
                 self.route_reason = f"auto: f32 values, {why}"
+            elif a.dtype == np.float64:
+                method = "csr"
+                self.route_reason = f64_reason(a)
             else:
                 method, why = xla_heuristic(a)
                 self.route_reason = f"auto: {a.dtype} -> {method} ({why})"
-        elif method in NOT_PORTED:
-            raise NotImplementedError(
-                f"spmv method {method!r} is not ported to sblas_torch yet")
+        elif method == "pallas_ds":
+            if a.dtype != np.float64:
+                raise ValueError(f"pallas_ds is the f64 path, got {a.dtype}; "
+                                 "use method='csr' for f32")
+            method = "csr"
+            self.route_reason = (
+                "method='pallas_ds' requested: the 'csr' plan's f64 build "
+                "(the JAX package's double-single planes exist because "
+                "Mosaic has no f64; the card computes in IEEE f64)")
         elif method == "pseg_big":
             method = "pseg"
             self.route_reason = (
@@ -144,15 +183,27 @@ class SpmvPlan:
         m, n = a.shape
         val_bytes = a.data.itemsize
 
-        if method in ("csr", "merge", "pseg", "rcm"):
+        if method in ("csr", "rcm") and a.dtype == np.float64:
+            vd = as_torch_dtype(value_dtype or torch.float64)
+            if vd != torch.float64:
+                raise ValueError(f"value_dtype must be f64 for an f64 "
+                                 f"matrix, got {vd}")
+        elif method in ("csr", "merge", "pseg", "rcm"):
             if a.dtype != np.float32:
+                kinds = "f32 or f64" if method in ("csr", "rcm") else "f32"
                 raise ValueError(
-                    f"the {method} kernel takes f32 matrices, got {a.dtype}; "
-                    "use ell/bucket")
+                    f"the {method} kernel takes {kinds} matrices, got "
+                    f"{a.dtype}; use ell/bucket")
             vd = as_torch_dtype(value_dtype or torch.float32)
             if vd not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"value_dtype must be f32 or bf16, got {vd}")
-        if method in ("merge", "pseg"):
+        if method == "bsr":
+            from .spmm import SpmmPlan
+
+            self._mm = SpmmPlan(a, "bsr", k_hint=1, device=self.device)
+            self.fill = self._mm.density
+            self.bytes_per_iter = self._mm.bytes_per_call(1)
+        elif method in ("merge", "pseg"):
             # the SpMM plan at K = 1 (spmm imports this module): the
             # relabeling lives in one place
             from .spmm import SpmmPlan
@@ -174,8 +225,8 @@ class SpmvPlan:
                 self._rcm = self._up(perm), self._up(inv)
             # checked once here, with the launch's lanes per row
             self._op = spmv_csr.prepare(to_device(ap, self.device, vd))
-            self.bytes_per_iter = csr_bytes_per_iter(m, n, a.nnz,
-                                                     vd.itemsize)
+            self.bytes_per_iter = csr_bytes_per_iter(
+                m, n, a.nnz, vd.itemsize, self.dtype.itemsize)
         elif method == "coo":
             self._vals = self._up(a.data)
             self._cols = self._up(a.indices)
@@ -240,7 +291,7 @@ class SpmvPlan:
             raise ValueError("beta != 0 requires y")
         if y is not None and y.shape != (m,):
             raise ValueError(f"y must have shape ({m},), got {tuple(y.shape)}")
-        if self.method in ("merge", "pseg"):
+        if self.method in ("merge", "pseg", "bsr"):
             return self._mm(x.reshape(-1, 1), alpha, beta,
                             None if y is None else y.reshape(-1, 1)).view(-1)
         if self.method == "rcm":

@@ -6,11 +6,13 @@ of the same matrix and keywords (from the shared plan cache, so ``sptrsv``
 and ``sptrsm`` of one factor upload it once) and solves all K columns in
 one call of its route:
 
-- ``'syncfree'`` (``'pallas'`` names it; ``'auto'`` for f32): the sync-free
-  kernel, K columns a launch, in register chunks of up to 16 columns; one
-  flag a row covers all K.
-- ``'tiles'`` (``'auto'`` for f64): the torch tile scan over an ``(n, K)``
-  buffer, each tile's gathers shared by the K columns.
+- ``'syncfree'`` (``'pallas'`` names it; ``'auto'`` for f32 and f64;
+  ``'pallas_ds'`` names its f64 build): the sync-free kernel, K columns a
+  launch, in register chunks of up to 16 columns (8 in f64); one flag a row
+  covers all K. The JAX package's ``'pallas_ds'`` splits K into solves of 8 columns;
+  here any K takes one launch.
+- ``'tiles'``: the torch tile scan over an ``(n, K)`` buffer, each tile's
+  gathers shared by the K columns, any value dtype.
 - ``'jacobi'``, through :func:`sptrsm`: the Jacobi-sweep plan of
   :mod:`sblas_torch.ops.sptrsv_iter`, one SpMM a sweep.
 
@@ -46,7 +48,7 @@ class SptrsmPlan:
         and X K-fold (and, sync-free, a flag a row)."""
         n = self.shape[0]
         if self.method == "syncfree":
-            return syncfree_bytes(n, self.nnz, k)
+            return syncfree_bytes(n, self.nnz, k, self.dtype.itemsize)
         es = self.dtype.itemsize
         return self._sv.bytes_per_iter + n * 2 * es * (k - 1)
 

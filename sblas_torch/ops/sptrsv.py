@@ -9,6 +9,12 @@ Routes (``method=``, or ``'auto'``):
                    flag in device memory. No level schedule at solve time.
 - ``'pallas'``   — the ``'syncfree'`` plan (``method == 'syncfree'``): the
                    JAX package's level-set wavefront computes the same solve.
+- ``'pallas_ds'`` — the ``'syncfree'`` plan of an f64 matrix (the f64 build
+                   of the kernel). The JAX package's f64-class solve is an
+                   f32 wavefront refined twice through double-single
+                   residual SpMVs, because Mosaic has no f64; the card solves
+                   in f64 directly, so no refinement is left to port. An f32
+                   matrix raises ``ValueError``, as in the JAX package.
 - ``'tiles'``    — plain torch, the counterpart of the JAX package's
                    ``_solve_tiles``: a serial scan over the level tiles of
                    :func:`~sblas_torch.sptrsv_schedule.build_level_schedule`,
@@ -16,12 +22,11 @@ Routes (``method=``, or ``'auto'``):
 - ``'jacobi'``   — through :func:`sptrsv` only: the Jacobi-sweep plan of
                    :mod:`sblas_torch.ops.sptrsv_iter`.
 
-``'auto'`` picks ``'syncfree'`` for f32 and ``'tiles'`` for f64, on every
-device: on CPU tensors the kernel's wrapper runs its plain torch version.
-``'pallas_ds'`` (f64 through f32 solves and double-single refinement)
-raises ``NotImplementedError`` until its kernel is ported. A missing or
-zero diagonal raises ``ValueError`` when the plan is built. The route is
-fixed then: a kernel launch that fails raises, and no other route is tried.
+``'auto'`` picks ``'syncfree'`` for f32 and f64 (the kernel's two builds)
+and ``'tiles'`` for any other dtype, on every device: on CPU tensors the
+kernel's wrapper runs its plain torch version. A missing or zero diagonal
+raises ``ValueError`` when the plan is built. The route is fixed then: a
+kernel launch that fails raises, and no other route is tried.
 """
 
 from __future__ import annotations
@@ -36,14 +41,17 @@ from .kernels import sptrsv_csr
 from .spmv import _PLAN_CACHE
 
 ROUTES = ("syncfree", "pallas", "tiles")
-NOT_PORTED = ("pallas_ds",)
+# every route of the JAX package has its counterpart here
+NOT_PORTED = ()
 
 
-def syncfree_bytes(n: int, nnz: int, k: int = 1) -> int:
-    """Bytes one sync-free solve of ``k`` columns moves: each nonzero's f32
-    value and int32 column once, ``indptr``, ``b`` in and ``x`` out (f32,
-    ``k`` columns), and a flag a row."""
-    return nnz * (4 + 4) + (n + 1) * 4 + 2 * n * 4 * k + n * 4
+def syncfree_bytes(n: int, nnz: int, k: int = 1, val_bytes: int = 4) -> int:
+    """Bytes one sync-free solve of ``k`` columns moves: each nonzero's value
+    (``val_bytes``: 4 in f32, 8 in f64) and int32 column once, ``indptr``,
+    ``b`` in and ``x`` out (``k`` columns of the values' dtype), and a flag
+    a row."""
+    return (nnz * (val_bytes + 4) + (n + 1) * 4 + 2 * n * val_bytes * k
+            + n * 4)
 
 
 def solve_tiles(arrs: dict, b: torch.Tensor, n: int, tile_rows: int,
@@ -88,14 +96,22 @@ class SptrsvPlan:
         self.device = torch.device(device) if device is not None \
             else default_device()
         if method == "auto":
-            method = "syncfree" if l.dtype == np.float32 else "tiles"
+            kernel = l.dtype in (np.float32, np.float64)
+            method = "syncfree" if kernel else "tiles"
             self.route_reason = (
                 f"auto: {l.dtype} values -> {method} "
-                + ("(the sync-free kernel)" if method == "syncfree" else
-                   "(the kernel takes f32 values)"))
-        elif method in NOT_PORTED:
-            raise NotImplementedError(
-                f"sptrsv method {method!r} is not ported to sblas_torch yet")
+                + (f"(the sync-free kernel's {l.dtype} build)" if kernel
+                   else "(the kernel takes f32 or f64 values)"))
+        elif method == "pallas_ds":
+            if l.dtype != np.float64:
+                raise ValueError(f"pallas_ds is the f64 path, got {l.dtype}; "
+                                 "use method='syncfree' for f32")
+            method = "syncfree"
+            self.route_reason = (
+                "method='pallas_ds' requested: the 'syncfree' plan's f64 "
+                "build (the JAX package refines f32 solves through "
+                "double-single SpMVs because Mosaic has no f64; the card "
+                "solves in f64)")
         elif method == "pallas":
             method = "syncfree"
             self.route_reason = (
@@ -108,11 +124,13 @@ class SptrsvPlan:
         self.method = method
         n = l.shape[0]
         if method == "syncfree":
-            # checked once here (square, f32, the diagonal), with the levels
+            # checked once here (square, f32 or f64, the diagonal), with the
+            # levels
             self._op = sptrsv_csr.prepare(l, self.device, lower=lower,
                                           unit_diagonal=unit_diagonal)
             self.nlevels = self._op["nlevels"]
-            self.bytes_per_iter = syncfree_bytes(n, l.nnz)
+            self.bytes_per_iter = syncfree_bytes(n, l.nnz,
+                                                 val_bytes=l.data.itemsize)
             return
         sched = build_level_schedule(l, lower=lower,
                                      unit_diagonal=unit_diagonal,

@@ -18,15 +18,27 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
-# fp32 FLOP/s of one H100 SXM outside the tensor cores (NVIDIA's data
-# sheet, at the full 700 W power limit): the operations side of a bound
+# fp32 and fp64 FLOP/s of one H100 SXM outside the tensor cores (NVIDIA's
+# data sheet, at the full 700 W power limit): the operations side of a
+# bound, by the type the work is done in
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 # device-memory rate of the same card (data sheet, HBM3): the bytes side of
 # a bound. The STREAM triad measured on it (about 3.08 TB/s) is what a
 # kernel can reach, and is reported beside it, never in its place
 HBM_BYTES_PER_S = 3.35e12
+
+
+def peak_flops(dtype) -> float:
+    """The card's data-sheet rate for work done in ``dtype``: ``FP64_FLOPS``
+    for f64, ``FP32_FLOPS`` otherwise (f32, and bf16 values summed in
+    f32)."""
+    f64 = dtype == torch.float64 if isinstance(dtype, torch.dtype) \
+        else np.dtype(dtype) == np.float64
+    return FP64_FLOPS if f64 else FP32_FLOPS
 
 
 @dataclasses.dataclass

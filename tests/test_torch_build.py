@@ -1,4 +1,5 @@
-"""The kernel build: nvcc's route, keyed on the sources, never a fallback."""
+"""The builds: nvcc's route for the kernels and g++'s for the host
+factorizations, each keyed on its sources, never a fallback."""
 
 import os
 import shutil
@@ -7,6 +8,7 @@ from pathlib import Path
 
 import pytest
 
+from sblas_torch import native
 from sblas_torch.ops.kernels import _build
 
 
@@ -71,6 +73,24 @@ echo "ptxas info : Used 30 registers" >&2
     assert "registers" in log and "== spmm_bsr.cu" in log
 
 
+def test_ptxas_report_names_each_kernel():
+    log = """== sptrsv_csr.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115sptrsv_syncfreeIdLi16EEEviiiPKiS2_PKT_S5_S5_PS3_Pi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115sptrsv_syncfreeIdLi16EEEviiiPKiS2_PKT_S5_S5_PS3_Pi
+    16 bytes stack frame, 12 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 16 bytes cumulative stack size, 4 bytes smem
+ptxas info    : Function properties for _ZN44_GLOBAL__N__c6cfbb49_11_spmv_csr_cu_ef5c265c15spmv_csr_vectorIffLi8EEEviPKiS2_PKT_S5_S5_S3_S3_PS3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+    assert _build.ptxas_report(log) == [
+        {"kernel": "15sptrsv_syncfreeIdLi16E", "registers": 48,
+         "spill_stores": 12, "spill_loads": 24},
+        {"kernel": "15spmv_csr_vectorIffLi8E", "registers": 32,
+         "spill_stores": 0, "spill_loads": 0}]
+    assert _build.ptxas_report("") == []
+
+
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
@@ -96,3 +116,39 @@ def test_build_dir_is_git_ignored():
     ignored = (root / ".gitignore").read_text().split()
     assert "build/" in ignored
     assert os.path.isdir(_build.CSRC)
+
+
+def test_host_library_builds_into_build_keyed_on_its_source(tmp_path):
+    root = Path(__file__).resolve().parents[1]
+    assert native.BUILD_DIR == root / "build" / "sblas_torch"
+    assert native.SRC.parent.name == "hostsrc"       # not globbed by nvcc
+    assert native.SRC not in _build.sources()
+    src = tmp_path / "factor.cpp"
+    shutil.copy(native.SRC, src)
+    out = tmp_path / "out"
+    lib = native.build(src, out)
+    assert lib == native.library_path(src, out) and lib.exists()
+    assert lib.parent == out and lib.name.startswith("libsblas_torch_host_")
+    assert native.build(src, out) == lib              # reused, not rebuilt
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert native.library_path(src, out) != lib
+    # the library the package loads is the repository's own
+    assert native.library_path() == native.BUILD_DIR / native.library_path(
+        native.SRC, native.BUILD_DIR).name
+
+
+def test_broken_host_source_raises_with_the_compilers_output(tmp_path):
+    src = tmp_path / "factor.cpp"
+    src.write_text(native.SRC.read_text().replace(
+        "return 0;\n}", "return 0 undeclared_name_in_factor;\n}", 1))
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed") as err:
+        native.build(src, out)
+    assert "undeclared_name_in_factor" in str(err.value)
+    assert not list(out.glob("*.so"))
+
+
+def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
+    _no_nvcc(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        native.build(native.SRC, tmp_path / "out")

@@ -16,8 +16,9 @@ import sblas_torch
 from sblas_torch import datasets
 from sblas_torch.formats import COO, CSR, to_device
 from sblas_torch.formats import csr_transpose
-from sblas_torch.golden import (KERNEL_TOL, rel_err, spmm_golden,
-                                spmv_golden, sptrsm_golden, sptrsv_golden)
+from sblas_torch.golden import (KERNEL_TOL, KERNEL_TOL_F64, rel_err,
+                                spmm_golden, spmv_golden, sptrsm_golden,
+                                sptrsv_golden)
 from sblas_torch.ops.kernels import spmm_bsr as bkern
 from sblas_torch.ops.kernels import spmm_csr as ckern
 from sblas_torch.ops.kernels import sptrsv_csr as skern
@@ -393,6 +394,99 @@ def test_sptrsv_main_paths_go_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert kern.LAUNCHES + ckern.LAUNCHES > before
     assert rel_err(xj.cpu().numpy(), sptrsv_golden(l, b)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_f64_kernel_vs_plain_on_card(cuda, name):
+    # the f64 build at every lanes-per-row width, alpha = 1/3
+    a = MATRICES[name]().astype(np.float64)
+    t = kern.prepare(to_device(a, cuda))
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(a.shape[1])).to(cuda)
+    y = torch.from_numpy(rng.standard_normal(a.shape[0])).to(cuda)
+    want_golden = spmv_golden(a, x.cpu().numpy(), 1 / 3, -0.5,
+                              y.cpu().numpy())
+    for g in kern.GROUPS:
+        before, before32 = kern.LAUNCHES_F64, kern.LAUNCHES
+        got = kern.spmv_csr({**t, "group": g}, x, 1 / 3, -0.5, y)
+        torch.cuda.synchronize()
+        assert kern.LAUNCHES_F64 == before + (a.shape[0] > 0)
+        assert kern.LAUNCHES == before32
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        want = kern.spmv_csr_reference(t, x, 1 / 3, -0.5, y)
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= \
+            KERNEL_TOL_F64
+        assert rel_err(got.cpu().numpy(), want_golden) < 1e-13
+
+
+@pytest.mark.cuda
+def test_f64_alpha_and_beta_keep_every_bit(cuda):
+    # y = alpha * I @ 1 + beta * 1: a c_float argument would give
+    # 0.3333333432674408 for 1/3
+    n = 64
+    eye = CSR((n, n), np.arange(n + 1, dtype=np.int32),
+              np.arange(n, dtype=np.int32), np.ones(n))
+    t = kern.prepare(to_device(eye, cuda))
+    one = torch.ones(n, dtype=torch.float64, device=cuda)
+    got = kern.spmv_csr(t, one, 1 / 3, 0.0).cpu().numpy()
+    assert (got == 1 / 3).all()
+    got = kern.spmv_csr(t, one, 0.0, 1 / 7, one).cpu().numpy()
+    assert (got == 1 / 7).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("name", list(_sptrsv_cases()))
+def test_f64_sptrsv_kernel_vs_plain_on_card(cuda, name, lower):
+    l = _sptrsv_cases()[name]().astype(np.float64)
+    a = l if lower else csr_transpose(l)
+    op = skern.prepare(a, cuda, lower=lower)
+    n = a.shape[0]
+    for k in (1, 3, 8, 17):
+        b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, k))).to(cuda)
+        before, before32 = skern.LAUNCHES_F64, skern.LAUNCHES
+        got = skern.sptrsv_csr(op, b)
+        torch.cuda.synchronize()
+        assert skern.LAUNCHES_F64 == before + 1
+        assert skern.LAUNCHES == before32
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        want = skern.sptrsv_csr_reference(op, b)
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= \
+            KERNEL_TOL_F64
+        assert rel_err(got.cpu().numpy(), sptrsm_golden(
+            a, b.cpu().numpy(), lower=lower)) < 1e-10
+        for _ in range(20):
+            assert torch.equal(skern.sptrsv_csr(op, b), got)
+        if k == 1 and n <= 400:
+            # the kernel's own order of work, emulated on the CPU
+            emu = skern.sptrsv_csr_emulate(op, b)
+            assert rel_err(got.cpu().numpy(), emu.cpu().numpy()) <= 1e-14
+
+
+@pytest.mark.cuda
+def test_f64_solvers_on_card(cuda):
+    from sblas_torch import solvers
+
+    a = datasets.poisson2d(40, dtype=np.float64)
+    b = np.random.default_rng(5).standard_normal(a.shape[0])
+    before = kern.LAUNCHES_F64, skern.LAUNCHES_F64
+    for m in (None, solvers.jacobi(a), solvers.ichol(a)):
+        x, info = solvers.cg(a, b, tol=1e-10, M=m)
+        assert x.device.type == "cuda" and x.dtype == torch.float64
+        assert info["rel_residual"] < 1e-10
+        true = np.linalg.norm(b - a.to_scipy() @ x.cpu().numpy()) / \
+            np.linalg.norm(b)
+        assert true < 2e-10
+    c = datasets.convection_diffusion(40, dtype=np.float64)
+    for solve in (solvers.bicgstab, solvers.gmres):
+        x, info = solve(c, b, tol=1e-10, M=solvers.ilu(c))
+        true = np.linalg.norm(b - c.to_scipy() @ x.cpu().numpy()) / \
+            np.linalg.norm(b)
+        assert info["rel_residual"] < 1e-10 and true < 2e-10
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES_F64 > before[0] and skern.LAUNCHES_F64 > before[1]
 
 
 def test_timing_refuses_a_cpu_carry():

@@ -1,10 +1,12 @@
 """The port's own host layer against the JAX package's, on the same seeds.
 
-The port copies ``formats``, ``io``, ``datasets``, ``golden``, ``retile``,
-``retile_bsr``, ``reorder``, ``hub_relabel`` (``relabel``) and
-``sptrsv_schedule`` instead of importing them, and computes the solves'
-dependency levels itself (``levels``, where the JAX package has a native
-sweep). These tests hold every copy
+The port copies ``formats`` (``has_full_diagonal`` too), ``io``,
+``datasets`` (and ``examples/convection_ilu.py``'s ``convection_diffusion``),
+``golden``, ``retile``, ``retile_bsr``, ``reorder``, ``hub_relabel``
+(``relabel``), ``sptrsv_schedule`` and the solvers' plain factorizations
+instead of importing them, and computes the solves' dependency levels
+itself (``levels``, where the JAX package has a native sweep). These tests
+hold every copy
 to the original: the same generator seeds give the same arrays, the same
 retilings give the same layouts, and a matrix written by one package reads
 back identically in the other. No tolerance: the arrays must be equal.
@@ -33,7 +35,7 @@ from sblas import retile_bsr as ref_bsr
 from sblas.ops.kernels import spmv_pseg as ref_pseg
 from sblas_torch import (datasets, golden, io, levels, relabel, reorder,
                          retile, retile_bsr, sptrsv_schedule)
-from sblas_torch.formats import CSC, CSR, from_reference
+from sblas_torch.formats import CSC, CSR, from_reference, has_full_diagonal
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -256,6 +258,60 @@ def test_mtx_fields_and_symmetries_match(tmp_path, field, symmetry):
     _same_csr(io.read_mtx(path), ref_io.read_mtx(path))
 
 
+@pytest.mark.parametrize("name", ["poisson2d_nd", "spd_diag_dominant",
+                                  "random_csr(skew)", "lower_triangular"])
+def test_has_full_diagonal_matches(name):
+    from sblas.formats import COO as RefCOO
+    from sblas.formats import has_full_diagonal as ref_has_full_diagonal
+
+    r = GENERATORS[name](ref_ds)
+    assert has_full_diagonal(from_reference(r)) == ref_has_full_diagonal(r)
+    # without the (5, 5) entry
+    coo = r.tocoo()
+    keep = ~((coo.row == coo.col) & (coo.row == 5))
+    dropped = RefCOO(r.shape, coo.row[keep], coo.col[keep],
+                     coo.data[keep]).tocsr()
+    assert not has_full_diagonal(from_reference(dropped))
+    assert not ref_has_full_diagonal(dropped)
+
+
+@pytest.mark.parametrize("eps", [0.01, 0.05])
+@pytest.mark.parametrize("nx", [12, 32])
+def test_convection_diffusion_matches_the_example(nx, eps):
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        from convection_ilu import convection_diffusion as example
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    r = example(nx, eps)
+    _same_csr(datasets.convection_diffusion(nx, eps), r)
+    p64 = datasets.convection_diffusion(nx, eps, dtype=np.float64)
+    assert p64.dtype == np.float64
+    np.testing.assert_array_equal(p64.data.astype(np.float32), r.data)
+
+
+@pytest.mark.parametrize("kind", ["ic0", "ilu0"])
+def test_plain_factorizations_match(kind):
+    from sblas import formats as ref_formats
+    from sblas import solvers as ref_solvers
+    from sblas_torch import solvers
+
+    if kind == "ic0":
+        a = ref_formats.tril(ref_ds.spd_diag_dominant(300, 6, seed=11,
+                                                      dtype=np.float64))
+    else:
+        a = ref_ds.random_csr(300, 300, 8, bandwidth=30, seed=5,
+                              dtype=np.float64)
+        s = a.to_scipy().tolil()
+        s.setdiag(np.abs(s).sum(axis=1).A1 + 1.0)
+        a = ref_formats.CSR.from_scipy(s.tocsr())
+    name = f"_{kind}_numpy"
+    port, theirs = a.data.copy(), a.data.copy()
+    assert getattr(solvers, name)(a.indptr, a.indices, port) == \
+        getattr(ref_solvers, name)(a.indptr, a.indices, theirs) == 0
+    np.testing.assert_array_equal(port, theirs)
+
+
 def test_goldens_match():
     a = datasets.random_csr(80, 60, 5, seed=1)
     r = ref_ds.random_csr(80, 60, 5, seed=1)
@@ -336,6 +392,16 @@ for method in ("auto", "tiles", "jacobi"):
                              device="cpu").numpy()
     assert golden.rel_err(out, golden.sptrsm_golden(
         sblas_torch.csr_transpose(l), b, lower=False)) < 2e-4
+from sblas_torch import solvers
+p = datasets.poisson2d(16, dtype=np.float64)
+r = np.random.default_rng(1).standard_normal(256)
+for m in (None, solvers.ichol(p, device="cpu")):
+    xs, info = solvers.cg(p, r, tol=1e-10, M=m, device="cpu")
+    assert info["rel_residual"] < 1e-10, info
+c = datasets.convection_diffusion(16, dtype=np.float64)
+xs, info = solvers.gmres(c, r, tol=1e-10, M=solvers.ilu(c, device="cpu"),
+                         device="cpu")
+assert info["rel_residual"] < 1e-10, info
 print("MODULES", sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "sblas")))
 """

@@ -52,8 +52,12 @@ def test_host_layer_is_the_ports_own():
 
 def test_lazy_entry_points():
     import sblas_torch
+    from sblas_torch import solvers
     from sblas_torch.ops import spmm as spmm_mod
     from sblas_torch.ops import spmv as spmv_mod
+
+    assert sblas_torch.solvers is solvers
+    assert "solvers" in sblas_torch.__all__
 
     assert sblas_torch.spmv is spmv_mod.spmv
     assert sblas_torch.SpmvPlan is spmv_mod.SpmvPlan

@@ -213,13 +213,19 @@ def test_auto_rule_is_the_bytes_model():
 
 @pytest.mark.parametrize("name", ["banded", "skewed", "m!=n", "block-dense"])
 def test_f64_auto_picks_the_reference_route(name):
+    # auto runs f64 as spmv_passes over the csr kernel's f64 build; its
+    # reason names the route the JAX package's auto runs (its XLA
+    # heuristic: bsr on the dense band), and the two agree to f64 rounding
     a = datasets.banded(512, 40, seed=33, dtype=np.float64) \
         if name == "block-dense" else ROUTE_MATRICES[name](np.float64)
     plan = SpmmPlan(_p(a), device="cpu")
-    assert plan.method == RefPlan(a, "auto").method
-    assert plan.method in plan.route_reason
+    ref = RefPlan(a, "auto")
+    assert plan.method == "spmv_passes"
+    assert repr(ref.method) in plan.route_reason
     if name == "block-dense":
-        assert plan.method == "bsr"
+        assert ref.method == "bsr"
+    x = _dense((a.shape[1], 3), 56, np.float64)
+    assert rel_err(_np(plan(x)), np.asarray(ref(x))) < 1e-13
 
 
 def test_slice_auto_vs_reference():
@@ -252,11 +258,18 @@ def test_shape_and_beta_checks(method):
     assert tuple(plan(np.ones((30, 0), np.float32)).shape) == (40, 0)
 
 
-@pytest.mark.parametrize("method", NOT_PORTED)
+@pytest.mark.parametrize("method", ["pallas_ds"])
 def test_not_ported_methods_raise(method):
-    a = _p(datasets.random_csr(8, 8, 2, seed=0))
-    with pytest.raises(NotImplementedError, match=method):
-        SpmmPlan(a, method, device="cpu")
+    # ported (NOT_PORTED is empty): 'pallas_ds' raises only where the JAX
+    # package raises, on f32, and runs f64 as spmv_passes
+    assert NOT_PORTED == ()
+    r = datasets.random_csr(8, 8, 2, seed=0)
+    with pytest.raises(ValueError, match="f64 path"):
+        SpmmPlan(_p(r), method, device="cpu")
+    with pytest.raises(ValueError, match="f64 path"):
+        RefPlan(r, method)
+    r64 = datasets.random_csr(8, 8, 2, seed=0, dtype=np.float64)
+    assert SpmmPlan(_p(r64), method, device="cpu").method == "spmv_passes"
 
 
 def test_unknown_and_reference_only_names():

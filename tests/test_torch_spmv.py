@@ -82,10 +82,16 @@ def test_routes_vs_reference(method, name, dtype):
 
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_f64_auto_picks_the_reference_route(name):
+    # auto runs f64 on the csr kernel's f64 build; its reason names the
+    # route the JAX package's auto runs (its XLA heuristic), and the two
+    # agree to f64 rounding
     a = MATRICES[name](np.float64)
     plan = SpmvPlan(_p(a), device="cpu")
-    assert plan.method == RefPlan(a, "auto").method
-    assert plan.method in plan.route_reason
+    ref = RefPlan(a, "auto")
+    assert plan.method == "csr"
+    assert repr(ref.method) in plan.route_reason
+    x = _vec(a.shape[1], 9, np.float64)
+    assert rel_err(_np(plan(x)), np.asarray(ref(x))) < 1e-13
 
 
 # (c) the csr kernel module against the reference Pallas kernel ----------
@@ -151,11 +157,34 @@ def test_x_shape_check(method):
         RefPlan(a, "coo")(np.ones(9, np.float32))
 
 
-@pytest.mark.parametrize("method", NOT_PORTED)
+@pytest.mark.parametrize("method", ["bsr", "pallas_ds"])
 def test_not_ported_methods_raise(method):
+    # both are ported (NOT_PORTED is empty): 'bsr' builds on any matrix, and
+    # 'pallas_ds' raises only where the JAX package raises, on f32
+    assert NOT_PORTED == ()
     a = datasets.random_csr(8, 8, 2, seed=0)
-    with pytest.raises(NotImplementedError, match=method):
-        SpmvPlan(_p(a), method, device="cpu")
+    if method == "pallas_ds":
+        with pytest.raises(ValueError, match="f64 path"):
+            SpmvPlan(_p(a), method, device="cpu")
+        with pytest.raises(ValueError, match="f64 path"):
+            RefPlan(a, method)
+    else:
+        assert SpmvPlan(_p(a), method, device="cpu").method == "bsr"
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bsr_vs_reference(dtype):
+    # the SpMM bsr plan at K = 1 against the reference's XLA bsr route
+    a = datasets.banded(300, 20, seed=7, dtype=dtype)
+    x, y0 = _vec(300, 23, dtype), _vec(300, 24, dtype)
+    plan = SpmvPlan(_p(a), "bsr", device="cpu")
+    assert plan.method == "bsr" and plan._mm.method == "bsr"
+    port = _np(plan(x, 2.5, -0.5, y0))
+    ref = np.asarray(RefPlan(a, "bsr")(x, 2.5, -0.5, y0))
+    tol = default_tol(dtype)
+    assert port.dtype == ref.dtype == dtype
+    assert rel_err(port, ref) < tol
+    assert rel_err(port, spmv_golden(a, x, 2.5, -0.5, y0)) < tol
 
 
 def test_unknown_method():
@@ -167,11 +196,23 @@ def test_unknown_method():
 
 
 def test_csr_rejects_f64_like_the_pallas_route():
+    # the reference's w-SELL kernel refuses f64; the csr kernel has an f64
+    # build and takes it, and refuses what neither build takes: f64 values
+    # cut to f32 and complex values. The nnz-balanced kernel has no f64 build
     a = datasets.random_csr(64, 64, 4, seed=8, dtype=np.float64)
-    with pytest.raises(ValueError, match="f32"):
-        SpmvPlan(_p(a), "csr", device="cpu")
     with pytest.raises(ValueError):
         RefPlan(a, "pallas")
+    x = _vec(64, 3, np.float64)
+    got = _np(SpmvPlan(_p(a), "csr", device="cpu")(x))
+    assert got.dtype == np.float64
+    assert rel_err(got, spmv_golden(a, x)) < 1e-13
+    with pytest.raises(ValueError, match="f64"):
+        SpmvPlan(_p(a), "csr", value_dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="f32"):
+        SpmvPlan(_p(a), "merge", device="cpu")
+    c = CSR(a.shape, a.indptr, a.indices, a.data.astype(np.complex128))
+    with pytest.raises(ValueError, match="f32 or f64"):
+        SpmvPlan(c, "csr", device="cpu")
 
 
 def test_to_device_refuses_int32_overflow():
@@ -231,8 +272,8 @@ def test_wrapper_checks_its_inputs():
     # the matrix is checked once, when its operand is prepared
     with pytest.raises(TypeError, match="int32"):
         prepare({**raw, "indices": raw["indices"].long()})
-    with pytest.raises(TypeError, match="f32 or bf16"):
-        prepare({**raw, "data": raw["data"].double()})
+    with pytest.raises(TypeError, match="f32, bf16 or f64"):
+        prepare({**raw, "data": raw["data"].half()})
     with pytest.raises(ValueError, match="contiguous"):
         prepare({**raw, "data": torch.stack([raw["data"]] * 2, 1)[:, 0]})
     with pytest.raises(ValueError, match="shape"):
@@ -269,6 +310,12 @@ def test_group_size_follows_mean_row_length():
     assert group_size(300, 3858) == 2                # 12.9 nnz/row
     assert group_size(100, 237) == 2
     assert group_size(0, 0) == 2 and group_size(5, 0) == 2
+    # the f64 build: capped at 16 (the FEM band's fastest f64 width)
+    f64 = torch.float64
+    assert group_size(1_000_000, 109_900_000, f64) == 16   # fem-band
+    assert group_size(62451, 3637188, f64) == 8            # cant
+    assert group_size(100, 30000, f64) == 16               # capped
+    assert group_size(100, 3200, torch.bfloat16) == 4
 
 
 def test_csr_bytes_model():

@@ -68,7 +68,7 @@ def _held(port, ref, golden, dtype):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("gen", GENS)
 def test_sptrsv_vs_reference(gen, dtype, method):
-    # auto: the sync-free route for f32, tiles for f64
+    # auto: the sync-free route, its f32 or f64 build
     r = _factor(gen, dtype)
     b = _rhs(r.shape[0], dtype)
     x = sptrsv(from_reference(r), b, method=method, device="cpu")
@@ -233,22 +233,32 @@ def test_plan_routes_and_attributes():
     pallas = SptrsvPlan(p, method="pallas", device="cpu")
     assert pallas.method == "syncfree" and "pallas" in pallas.route_reason
     r64 = _factor("chol-nd-poisson2d-24", np.float64)
-    tiles = SptrsvPlan(from_reference(r64), device="cpu")
+    p64 = from_reference(r64)
+    auto64 = SptrsvPlan(p64, device="cpu")
+    assert auto64.method == "syncfree" and "float64" in auto64.route_reason
+    ds = SptrsvPlan(p64, method="pallas_ds", device="cpu")
+    assert ds.method == "syncfree" and "pallas_ds" in ds.route_reason
+    assert ds.bytes_per_iter == syncfree_bytes(n, r64.nnz, 1, 8)
+    tiles = SptrsvPlan(p64, method="tiles", device="cpu")
     ref64 = RefSptrsvPlan(r64)
-    assert tiles.method == "tiles" and "float64" in tiles.route_reason
+    assert tiles.method == "tiles"
     assert (tiles.nlevels, tiles.tile_rows, tiles.num_tiles,
             tiles.bytes_per_iter) == (ref64.nlevels, ref64.tile_rows,
                                       ref64.num_tiles, ref64.bytes_per_iter)
     assert tiles.padding_ratio == ref64.padding_ratio
-    with pytest.raises(NotImplementedError):
+    # pallas_ds is the f64 path, here as in the JAX package
+    with pytest.raises(ValueError, match="f64 path"):
         SptrsvPlan(p, method="pallas_ds", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="f64 path"):
         sptrsm(p, np.ones((n, 2), np.float32), method="pallas_ds",
                device="cpu")
+    with pytest.raises(ValueError, match="f64 path"):
+        RefSptrsvPlan(r, method="pallas_ds")
     with pytest.raises(ValueError, match="unknown"):
         SptrsvPlan(p, method="wavefront", device="cpu")
-    with pytest.raises(ValueError, match="f32"):
-        SptrsvPlan(from_reference(r64), method="syncfree", device="cpu")
+    cplx = CSR(p.shape, p.indptr, p.indices, p.data.astype(np.complex64))
+    with pytest.raises(ValueError, match="complex"):
+        SptrsvPlan(cplx, method="syncfree", device="cpu")
     with pytest.raises(ValueError, match="square"):
         SptrsvPlan(from_reference(datasets.random_csr(5, 4, 2, seed=1)),
                    device="cpu")
