@@ -26,9 +26,11 @@ after:
   ``band-parallel``;
 - f64 SpMV (BASELINE.json config 1: ``auto`` and ``method="pallas_ds"``,
   ``y = A x / 3 - y / 2``, ``trans``) on ``cant`` and the FEM band, f64
-  SpMM (``auto``: ``spmv_passes``) on ``cant`` at K = 8, and the f64 solves
-  (``auto``: K = 1, 8 and the backsolve) on ``band-parallel`` and
-  ``chol-nd-poisson2d-1000``, all on the f64 builds of the kernels;
+  SpMM (``auto``) on ``cant`` at K = 8, f64 SpMV and SpMM at K = 8
+  (``auto``: the nnz-balanced kernel's f64 build) on ``uk-2002`` at 5%,
+  and the f64 solves (``auto``: K = 1, 8 and the backsolve) on
+  ``band-parallel`` and ``chol-nd-poisson2d-1000``, all on the f64 builds
+  of the kernels;
 - the Krylov solvers (``sblas_torch.solvers``): CG with Jacobi in f64 on a
   1M-row Poisson grid to convergence, IC(0)-CG, ILU(0)-BiCGSTAB and
   ILU(0)-GMRES(30) in f64 to convergence on 256 x 256 grids, and CG in f32
@@ -45,7 +47,12 @@ first), times each solve beside its plain version, its bound, its ns
 per level and cuSPARSE's ``triangular_solve``, and times the solvers: ms
 per iteration, split into the SpMV, the two triangular solves and the rest
 (IC(0)-CG, ILU(0)-BiCGSTAB and ILU(0)-GMRES(30) for 30 iterations on the
-1M-row grids), with the true residual. It imports only the port.
+1M-row grids), with the true residual. The solve kernel takes its tickets
+level by level, small levels grouped; every factor's solve is also held
+bit for bit to, and timed beside, the same kernel in plain level order and
+in row order (its earlier ticket orders), the 1M-row IC(0)/ILU(0) factors
+included. The nnz-balanced kernel is timed at
+every share size it takes (``unit_sweep``). It imports only the port.
 
 Output: one JSON line per phase; a ``{"kernels": [...]}`` line; the card's
 ``name, power.limit`` as nvidia-smi prints it; and last
@@ -96,7 +103,8 @@ def main() -> int:
     from sblas_torch.ops.kernels import spmv_csr as kern
     from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmm import _get_plan as spmm_plan
-    from sblas_torch.ops.spmv import _get_plan, csr_stream_bytes
+    from sblas_torch.ops.spmv import (MERGE_SHARE_NS, _get_plan,
+                                      csr_stream_bytes)
     from sblas_torch.ops.sptrsv import get_plan as sptrsv_plan
     from sblas_torch.retile_bsr import pack_bsr
     from sblas_torch.utils.backend import probe
@@ -118,6 +126,7 @@ def main() -> int:
                "spmv_csr_f64": (kern, "LAUNCHES_F64"),
                "spmm_bsr": (bkern, "LAUNCHES"),
                "spmm_csr": (ckern, "LAUNCHES"),
+               "spmm_csr_f64": (ckern, "LAUNCHES_F64"),
                "sptrsv_csr": (skern, "LAUNCHES"),
                "sptrsv_csr_f64": (skern, "LAUNCHES_F64")}
 
@@ -334,6 +343,28 @@ def main() -> int:
               "shares": shares, "fixups": fixups, "tol": KERNEL_TOL,
               "max_rel_err": max(errs.values()), "cases": len(errs)})
 
+    # the nnz-balanced kernel's f64 build vs its plain version on both
+    # graphs (the f64 values are the f32 ones cast), K = 1 and 8, alpha =
+    # 1/3
+    for name, a in graphs.items():
+        m, n = a.shape
+        errs = {}
+        op = ckern.prepare(sblas_torch.to_device(a.astype(np.float64), dev))
+        for k in (1, 8):
+            x, y = on_card(vec64(n, k)), on_card(vec64(m, k))
+            for alpha, beta, yy in ((1 / 3, -0.5, y), (1.0, 0.0, None)):
+                label = f"float64,K={k},Y={yy is not None}"
+                errs[label] = check_plain(
+                    "spmm_csr_f64", f"{name} {label}",
+                    ckern.spmm_csr(op, x, alpha, beta, yy),
+                    ckern.spmm_csr_reference(op, x, alpha, beta, yy),
+                    KERNEL_TOL_F64)
+            del x, y
+        del op
+        emit({"phase": "spmm_csr_vs_plain", "matrix": name,
+              "dtype": "float64", "nnz": a.nnz, "tol": KERNEL_TOL_F64,
+              "max_rel_err": max(errs.values()), "cases": len(errs)})
+
     # 4c. the sync-free solve kernel vs its plain version on the card, on
     # each factor, lower (L) and upper (L^T, the backsolve), K = 1 and 8,
     # in f32 and (its f64 build) f64; and the same bits on 20 repeats ----
@@ -352,19 +383,30 @@ def main() -> int:
                     errs[label] = check_plain(
                         kname, f"{name} {label}", got,
                         skern.sptrsv_csr_reference(op, b), tol)
-                    if k == 1:
-                        for _ in range(20):
-                            if not torch.equal(skern.sptrsv_csr(op, b), got):
-                                raise RuntimeError(
-                                    f"{name} {label}: the solve changed "
-                                    "from run to run")
+                    # the tickets (levels, small ones grouped) against
+                    # plain level order and the earlier row order: the
+                    # same bits, and the same bits 20 times
+                    level = {**op, "perm": on_card(skern.ticket_order(
+                        op["levels"], lower, 0))}
+                    for o in (skern.row_order(op), level):
+                        if not torch.equal(skern.sptrsv_csr(o, b), got):
+                            raise RuntimeError(f"{name} {label}: ticket "
+                                               "order differs from row "
+                                               "or level order")
+                    for _ in range(20):
+                        if not torch.equal(skern.sptrsv_csr(op, b), got):
+                            raise RuntimeError(
+                                f"{name} {label}: the solve changed "
+                                "from run to run")
                 nlevels[side] = op["nlevels"]
                 del op, b, got
         emit({"phase": "sptrsv_kernel_vs_plain", "matrix": name,
               "n": l.shape[0], "nnz": l.nnz, "nlevels": nlevels,
               "longest_row": int(l.row_lengths.max(initial=0)),
               "tol": KERNEL_TOL, "tol_f64": KERNEL_TOL_F64, "rel_err": errs,
-              "repeats_bit_equal": 20, "seconds": time.perf_counter() - t0})
+              "repeats_bit_equal": 20, "row_order_bit_equal": True,
+              "level_order_bit_equal": True,
+              "seconds": time.perf_counter() - t0})
 
     # 5. the main paths, through the user's entry points: the route is the
     # rule's pick, and each call must launch that route's kernel ---------
@@ -587,9 +629,10 @@ def main() -> int:
 
     # 5d. f64 (BASELINE.json config 1): SpMV through auto and pallas_ds by
     # name, y = A x / 3 - y / 2 and trans, on cant and the FEM band; SpMM
-    # (auto: spmv_passes) on cant at K = 8; the solves (auto) on
+    # (auto) on cant at K = 8; SpMV and SpMM K = 8 (auto: the nnz-balanced
+    # kernel's f64 build) on uk-2002@0.05 in f64; the solves (auto) on
     # band-parallel and chol-nd-poisson2d-1000. Each call must launch the
-    # f64 build of its kernel --------------------------------------------
+    # f64 build of its route's kernel ------------------------------------
     def spmv64_main_path(name, a):
         m, n = a.shape
         x, y0, xt = vec64(n), vec64(m), vec64(m)
@@ -613,19 +656,28 @@ def main() -> int:
     reset()
     for name, a in (("cant", cant64), ("fem-band-1M-112M", fem64)):
         spmv64_main_path(name, a)
-    x, y0 = vec64(cant64.shape[1], 8), vec64(cant64.shape[0], 8)
-    res = {}
-    check(res, "cant", "f64 K=8 alpha=1/3, beta=-1/2",
-          lambda: sblas_torch.spmm(cant64, x, 1 / 3, -0.5, y0, k_hint=8),
-          lambda: spmm_plan(cant64, "auto", k_hint=8),
-          spmm_golden(cant64, x, 1 / 3, -0.5, y0), f64_tol)
-    emit({"phase": "main_path", "path": "spmm", "matrix": "cant",
-          "dtype": "float64", "k": 8, "checks": res})
+    # the graph in f64: its values are the f32 ones cast
+    uk64 = graphs["uk-2002@0.05"].astype(np.float64)
+    for name, a in (("cant", cant64), ("uk-2002@0.05", uk64)):
+        x, y0 = vec64(a.shape[1], 8), vec64(a.shape[0], 8)
+        res = {}
+        if a is uk64:
+            xv, yv = x[:, 0].copy(), y0[:, 0].copy()
+            check(res, name, "f64 SpMV alpha=1/3, beta=-1/2",
+                  lambda: sblas_torch.spmv(a, xv, 1 / 3, -0.5, yv),
+                  lambda: _get_plan(a, "auto"),
+                  spmv_golden(a, xv, 1 / 3, -0.5, yv), f64_tol)
+        check(res, name, "f64 K=8 alpha=1/3, beta=-1/2",
+              lambda: sblas_torch.spmm(a, x, 1 / 3, -0.5, y0, k_hint=8),
+              lambda: spmm_plan(a, "auto", k_hint=8),
+              spmm_golden(a, x, 1 / 3, -0.5, y0), f64_tol)
+        emit({"phase": "main_path", "path": "spmm", "matrix": name,
+              "dtype": "float64", "k": 8, "checks": res})
     for name in ("band-parallel", "chol-nd-poisson2d-1000"):
         solve_main_path(name, factors64[name], np.float64)
     f64_launches = counts()
     emit({"phase": "launches", "path": "f64", **f64_launches})
-    for kname in ("spmv_csr_f64", "sptrsv_csr_f64"):
+    for kname in ("spmv_csr_f64", "spmm_csr_f64", "sptrsv_csr_f64"):
         if f64_launches[kname] == 0:
             raise RuntimeError(f"the f64 main path never launched {kname}")
     launches = {name: launches[name] + f64_launches[name]
@@ -781,9 +833,11 @@ def main() -> int:
 
     # 6a. f64: the csr kernel's f64 build (auto's route) on cant and the FEM
     # band, its plain version, cuSPARSE's f64 addmv and the bound (12 B a
-    # nonzero, 8 B vectors, fp64 rate); uk-2002@0.05 in f64, the csr
-    # kernel against the torch bucket route; SpMM on cant at K = 8 (auto:
-    # spmv_passes) against the torch bsr route and cuSPARSE's f64 addmm --
+    # nonzero, 8 B vectors, fp64 rate); uk-2002@0.05 in f64: the
+    # nnz-balanced kernel's f64 build (auto's merge), its plain version,
+    # cuSPARSE and the bound, against the csr kernel and the torch bucket
+    # route, and SpMM at K = 8 (merge, spmv_passes, bucket); SpMM on cant
+    # at K = 8 (auto) against the torch bsr route and cuSPARSE's addmm ---
     for name, a in (("cant", cant64), ("fem-band-1M-112M", fem64)):
         rec = bench_spmv(a, method="csr", ratio_pairs=3, device=dev)
         t = sblas_torch.to_device(a, dev)
@@ -805,29 +859,53 @@ def main() -> int:
               "rel_err": rec.extra["rel_err"],
               "ratio_pairs": rec.extra["ratio_pairs"]})
         del t, x0
-    uk64 = graphs["uk-2002@0.05"].astype(np.float64)
-    routes = {r: bench_spmv(uk64, method=r, device=dev, baseline=False)
-              for r in ("csr", "bucket")}
+    routes = {r: bench_spmv(uk64, method=r, device=dev,
+                            baseline=r == "merge")
+              for r in ("merge", "csr", "bucket")}
     route_times = {r: rec.seconds_per_iter * 1e6 for r, rec in routes.items()}
-    emit({"phase": "timing", "kernel": "spmv_csr_f64", "matrix":
-          "uk-2002@0.05", "card": card, "route_us": route_times,
-          "bound_us": bound_us(routes["csr"].bytes, routes["csr"].flops,
-                               np.float64)[0],
+    t = ckern.prepare(sblas_torch.to_device(uk64, dev))
+    x0 = on_card(vec64(uk64.shape[1], 1))
+    bound, by = bound_us(routes["merge"].bytes, routes["merge"].flops,
+                         np.float64)
+    timings["uk-2002@0.05 f64"] = {
+        "kernel_us": route_times["merge"], "bound_us": bound,
+        "bound_by": by, "cusparse_us": routes["merge"].extra["baseline_us"],
+        "plain_us": us(lambda x, x0: ckern.spmm_csr_reference(
+            t, x, EPS, 1.0, x0), x0, **few)}
+    emit({"phase": "timing", "kernel": "spmm_csr_f64", "matrix":
+          "uk-2002@0.05", "card": card, **timings["uk-2002@0.05 f64"],
+          "route_us": route_times,
           "rule_picked": _get_plan(uk64, "auto").method,
+          "route_reason": _get_plan(uk64, "auto").route_reason,
+          "faster_route": min(route_times, key=route_times.get),
+          "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
+    del t, x0, routes
+    routes = {r: bench_spmm(uk64, 8, method=r, device=dev,
+                            baseline=r == "merge")
+              for r in ("merge", "spmv_passes", "bucket")}
+    route_times = {r: rec.seconds_per_iter * 1e6 for r, rec in routes.items()}
+    emit({"phase": "spmm_timing", "matrix": "uk-2002@0.05",
+          "dtype": "float64", "k": 8, "card": card, "route_us": route_times,
+          "bound_us": routes["merge"].extra["bound_us"],
+          "cusparse_us": routes["merge"].extra["baseline_us"],
+          "rule_picked": spmm_plan(uk64, "auto", k_hint=8).method,
           "faster_route": min(route_times, key=route_times.get),
           "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
     del uk64, routes
     rec = bench_spmm(cant64, 8, method="auto", device=dev)
-    bsr = bench_spmm(cant64, 8, method="bsr", device=dev, baseline=False)
+    others = {r: bench_spmm(cant64, 8, method=r, device=dev,
+                            baseline=False).seconds_per_iter * 1e6
+              for r in ("bsr", "merge", "spmv_passes")}
     emit({"phase": "spmm_timing", "matrix": "cant", "dtype": "float64",
           "k": 8, "card": card, "method": rec.extra["method"],
+          "route_reason": rec.extra["route_reason"],
           "kernel_us": rec.seconds_per_iter * 1e6,
           "bound_us": rec.extra["bound_us"], "bound_by": rec.extra["bound_by"],
-          "cusparse_us": rec.extra["baseline_us"],
-          "bsr_us": bsr.seconds_per_iter * 1e6,
+          "cusparse_us": rec.extra["baseline_us"], "route_us": others,
+          "faster_route": min(others, key=others.get),
           "kernel_gbps": rec.gbps, "pct_stream": rec.extra["pct_stream"],
           "rel_err": rec.extra["rel_err"]})
-    del rec, bsr
+    del rec
 
     # 6b. the graphs: the nnz-balanced kernel in natural order (the merge
     # route auto runs) and hub-relabeled (the pseg operand), its plain
@@ -903,6 +981,45 @@ def main() -> int:
             del x0
         del nat, rel, sp
 
+    # 6c. the share size: the nnz-balanced kernel at each unit of merged-path
+    # items on both graphs, K = 1 and 8, each unit checked against the
+    # plain version before it is timed
+    for name, a in graphs.items():
+        t = sblas_torch.to_device(a, dev)
+        sweep, errs = {}, {}
+        for k in (1, 8):
+            x0 = on_card(vec(a.shape[1], k))
+            for unit in (256, 384, 512, 1024, 2048):
+                op = ckern.prepare(t, unit)
+                errs[f"{unit},K={k}"] = check_plain(
+                    "spmm_csr", f"{name} unit={unit} K={k}",
+                    ckern.spmm_csr(op, x0, 2.5),
+                    ckern.spmm_csr_reference(op, x0, 2.5))
+                sweep[f"{unit},K={k}"] = us(
+                    lambda x, x0, op=op: ckern.spmm_csr(op, x, EPS, 1.0, x0),
+                    x0)
+                del op
+        emit({"phase": "unit_sweep", "matrix": name, "card": card,
+              "rule_unit": ckern.UNIT, "rule_unit_spmv": ckern.UNIT_SPMV,
+              "us": sweep, "rel_err": errs})
+        del t, x0
+    # a matrix of a few shares: the kernel's time for one wave of shares,
+    # the SpMV rule's MERGE_SHARE_NS
+    small = datasets.banded(300, 5)
+    t = sblas_torch.to_device(small, dev)
+    x0 = on_card(vec(300, 1))
+    one_wave = {}
+    for unit in (256, 512, 1024, 2048):
+        op = ckern.prepare(t, unit)
+        check_plain("spmm_csr", f"banded(300,5) unit={unit}",
+                    ckern.spmm_csr(op, x0, 2.5),
+                    ckern.spmm_csr_reference(op, x0, 2.5))
+        one_wave[unit] = us(
+            lambda x, x0, op=op: ckern.spmm_csr(op, x, EPS, 1.0, x0), x0)
+    emit({"phase": "unit_sweep", "matrix": "banded(300,5)", "card": card,
+          "one_wave_us": one_wave, "rule_share_ns": MERGE_SHARE_NS})
+    del t, x0, op
+
     # 7. SpMM timing on the FEM matrices: the block kernel, its plain
     # version, cuSPARSE, the bound and the other routes -----------------
     spmm_timings = {}
@@ -958,8 +1075,27 @@ def main() -> int:
           "x_gather_fit": x_gather_fit(fem, 8, routes["merge"])})
 
     # 7b. the solves: the sync-free kernel through its plan (K = 1, 8 and
-    # the backsolve), its plain version, the bound, ns per level and
-    # cuSPARSE's triangular_solve; the Jacobi sweeps on band-parallel ------
+    # the backsolve, tickets level by level, small levels grouped), its
+    # plain version, the bound, ns per level and cuSPARSE's
+    # triangular_solve; beside it the same kernel with tickets in plain
+    # level order and in row order (its earlier orders); the Jacobi sweeps
+    # on band-parallel ------------------------------------------------------
+    def order_us(op, b0, turns=2, **kw):
+        """Graph-timed us of the solve kernel on ``op`` with its tickets
+        (levels, small ones grouped), in plain level order and in row
+        order, in turns (ticket, level, row, ticket, ...), as its plan is
+        timed (1 and 4 solves, best of 3 each; ``kw`` overrides)."""
+        kw = {"iters_lo": 1, "iters_hi": 4, **kw}
+        level = {**op, "perm": torch.from_numpy(skern.ticket_order(
+            op["levels"], op["lower"], 0)).to(op["perm"].device)}
+        out = {}
+        for order, o in (("ticket_us", op), ("level_us", level),
+                         ("row_order_us", skern.row_order(op))) * turns:
+            t_us = us(lambda x, b0, o=o: skern.sptrsv_csr(o, b0 + EPS * x),
+                      b0, **kw)
+            out[order] = min(out.get(order, t_us), t_us)
+        return out
+
     solve_timings = {}
     # the plain version runs ~8 torch calls a level: one and two solves
     solve_few = {"iters_lo": 1, "iters_hi": 2, "repeats": 1}
@@ -978,6 +1114,10 @@ def main() -> int:
         plain_us = {k: us(lambda x, b0: skern.sptrsv_csr_reference(
             op, b0 + EPS * x), on_card(mk(l.shape[0], k)), **solve_few)
             for k in (1, 8)}
+        orders = {"K=1": order_us(op, on_card(mk(l.shape[0], 1))),
+                  "K=8": order_us(op, on_card(mk(l.shape[0], 8))),
+                  "trans K=1": order_us(sptrsv_plan(lt, lower=False)._op,
+                                        on_card(mk(l.shape[0], 1)))}
         del op
         rows = {}
         for label, rec in recs.items():
@@ -991,6 +1131,7 @@ def main() -> int:
                 "rel_err": e["rel_err"],
                 "cusparse_us": e.get("baseline_us"),
                 "cusparse_error": e.get("baseline_error"),
+                **orders.get(label, {}),
                 **({"sweeps": e["sweeps"]} if "sweeps" in e else {})}
         rows["K=1"]["plain_us"], rows["K=8"]["plain_us"] = plain_us[1], \
             plain_us[8]
@@ -998,6 +1139,29 @@ def main() -> int:
         emit({"phase": "sptrsv_timing", "matrix": name, "card": card,
               "dtype": np.dtype(l.dtype).name, "n": l.shape[0],
               "nnz": l.nnz, **rows})
+
+    # 7b'. the ticket order's group size: the solve kernel with small
+    # levels merged into groups of at most 512 .. 4,096 rows (the rule's
+    # GROUP_ROWS among them), each order checked bit for bit first
+    group_sweep = {}
+    for name, k in (("band-parallel", 1), ("band-parallel", 8),
+                    ("chol-nd-poisson2d-120", 1),
+                    ("chol-nd-poisson2d-1000", 1)):
+        op = sptrsv_plan(factors[name])._op
+        b0 = on_card(vec(op["shape"][0], k))
+        got = skern.sptrsv_csr(op, b0)
+        row = {}
+        for g in (512, 1024, 2048, 4096):
+            o = {**op, "perm": on_card(skern.ticket_order(
+                op["levels"], True, g))}
+            if not torch.equal(skern.sptrsv_csr(o, b0), got):
+                raise RuntimeError(f"{name} group {g}: other bits")
+            row[g] = us(lambda x, b0, o=o: skern.sptrsv_csr(
+                o, b0 + EPS * x), b0, iters_lo=1, iters_hi=4)
+        group_sweep[f"{name} K={k}"] = row
+        del op, b0, got
+    emit({"phase": "ticket_group_sweep", "card": card,
+          "rule_group_rows": skern.GROUP_ROWS, "us": group_sweep})
 
     # 7c. the solvers: CG + Jacobi in f64 on the 1M-row grid to
     # convergence, and IC(0)-CG (the same grid), ILU(0)-BiCGSTAB and
@@ -1020,6 +1184,21 @@ def main() -> int:
         if m_ is None:          # GMRES shares BiCGSTAB's ILU(0) factor
             m_ = runs[2][3]
         row = bench_solver(solve, a, b1m, M=m_, **kw)
+        if label in ("ic0-cg", "ilu0-bicgstab"):
+            # the factors' solves in ticket order against row order: the
+            # same bits, and the three orders' times in this call
+            b0 = on_card(b1m)
+            for side, sp in (("fwd", m_.fwd), ("bwd", m_.bwd)):
+                got = skern.sptrsv_csr(sp._op, b0)
+                if not torch.equal(skern.sptrsv_csr(
+                        skern.row_order(sp._op), b0), got):
+                    raise RuntimeError(f"{label} {side}: ticket order "
+                                       "differs from row order")
+                # row order takes ~0.27 s a solve here: one turn, one
+                # sample of one against two solves
+                row[f"{side}_order_us"] = order_us(sp._op, b0, 1,
+                                                   **solve_few)
+            del b0
         agree = abs(row["rel_residual"] - row["true_rel_residual"]) / \
             row["true_rel_residual"]
         if kw["tol"] and not row["true_rel_residual"] <= 2 * kw["tol"]:
@@ -1070,6 +1249,7 @@ def main() -> int:
     big = solve_timings["chol-nd-poisson2d-1000"]["K=1"]
     big64 = solve_timings["chol-nd-poisson2d-1000 f64"]["K=1"]
     cant_f64 = timings["cant f64"]
+    uk_f64 = timings["uk-2002@0.05 f64"]
     emit({"kernels": [
         {"name": "spmv_csr", "route": "cuda",
          "source": "sblas_torch/csrc/spmv_csr.cu",
@@ -1123,6 +1303,18 @@ def main() -> int:
          "bound_by": cant_f64["bound_by"],
          "library_ms": cant_f64["cusparse_us"] / 1e3,
          "shape": "cant f64"},
+        {"name": "spmm_csr_f64", "route": "cuda",
+         "source": "sblas_torch/csrc/spmm_csr.cu",
+         "replaces": ["sblas/ops/kernels/spmv_pseg.py:37",
+                      "sblas/ops/kernels/spmm_pseg.py:134",
+                      "sblas/ops/kernels/spmm_pseg.py:350",
+                      "sblas/ops/kernels/spmm_pallas.py:30"],
+         "launches": launches["spmm_csr_f64"],
+         "max_abs_err": max_abs["spmm_csr_f64"],
+         "ms": uk_f64["kernel_us"] / 1e3, "plain_ms": uk_f64["plain_us"] / 1e3,
+         "bound_ms": uk_f64["bound_us"] / 1e3, "bound_by": uk_f64["bound_by"],
+         "library_ms": uk_f64["cusparse_us"] / 1e3,
+         "shape": "uk-2002@0.05 f64, K=1 (route merge, auto's f64 pick)"},
         {"name": "sptrsv_csr_f64", "route": "cuda",
          "source": "sblas_torch/csrc/sptrsv_csr.cu",
          "replaces": ["sblas/ops/kernels/sptrsv_ds.py:65",

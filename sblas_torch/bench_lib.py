@@ -31,7 +31,7 @@ import torch
 from .formats import CSR, as_torch_dtype
 from .golden import (rel_err, spmm_golden, spmv_golden, sptrsv_golden,
                      value_tol)
-from .ops.kernels import spmv_csr, sptrsv_csr
+from .ops.kernels import spmm_csr, spmv_csr, sptrsv_csr
 from .ops.spmm import SpmmPlan
 from .ops.spmv import SpmvPlan
 from .ops.sptrsm import SptrsmPlan
@@ -257,9 +257,10 @@ def bench_sptrsm(l: CSR, k: int = 8, *, lower: bool = True,
 
 
 def _launches() -> tuple[int, int]:
-    """Launches so far of the csr SpMV kernel and of the solve kernel, both
-    builds."""
-    return (spmv_csr.LAUNCHES + spmv_csr.LAUNCHES_F64,
+    """Launches so far of the SpMV kernels (csr and nnz-balanced) and of
+    the solve kernel, every build."""
+    return (spmv_csr.LAUNCHES + spmv_csr.LAUNCHES_F64 + spmm_csr.LAUNCHES
+            + spmm_csr.LAUNCHES_F64,
             sptrsv_csr.LAUNCHES + sptrsv_csr.LAUNCHES_F64)
 
 

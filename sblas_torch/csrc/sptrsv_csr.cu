@@ -17,29 +17,61 @@
 // has no fine-grained synchronisation and a small, fast scratch memory.
 //
 // A GPU has device-wide atomics and coherent L2, so this kernel solves
-// sync-free, as s-blas does: plain CSR in natural row order, no level
-// analysis at solve time, no barrier per level.
+// sync-free, as s-blas does: plain CSR, no barrier per level, each row
+// waiting on its own dependencies through a flag in device memory.
 //
-//   * One warp per row. A block of kWarps warps takes its rows from a global
-//     ticket (row = kWarps * ticket + warp for lower, n-1 minus that for
-//     upper), not from blockIdx: CUDA does not promise that blocks start in
-//     order, and a warp must never wait on a row that no running warp holds.
-//     A row's dependencies have smaller tickets, so their warps started
-//     earlier and are resident or done: no deadlock.
+//   * One warp per row, the rows level by level. A block of kWarps warps
+//     takes its tickets from a global counter, not from blockIdx: CUDA does
+//     not promise that blocks start in order, and a warp must never wait on
+//     a row that no running warp holds. Ticket t solves row perm[t], where
+//     perm (built on the host from the dependency levels: sptrsv_csr.py,
+//     ticket_order) lists level 0 first, then level 1, and so on, except
+//     that consecutive levels of few rows are merged into groups of about
+//     2,048 rows taken by row index (descending for upper). Every
+//     dependency of a row lies on a strictly lower level, so in the same
+//     group or an earlier one, and in the same group at a lower row (a
+//     higher one for upper): it has a smaller ticket, so its warp started
+//     earlier and is resident or done. No deadlock.
+//
+//     What bounded the row-order design (ticket t solved row t, or n-1-t
+//     for upper): the ~8,400 resident warps of an H100 held 8,400
+//     consecutive rows. On a natural-order 2D grid factor that is ~8 grid
+//     rows, each a chain of 1,000 dependent rows, so a solve took ~119,000
+//     dependent steps where the factor has only 1,999 levels; and the
+//     backsolve of a nested-dissection factor queued its separator chains
+//     first. In level order the resident window holds whole levels: the
+//     rows of a level wait only on the levels before it, so the chain is
+//     the level count, and the window keeps many levels in flight.
+//
+//     Why levels of few rows are grouped: in plain level order the ~115
+//     rows of a band-parallel level took ~15 consecutive blocks, so a
+//     level ran on ~15 SMs, and the solve was 4-6% slower than in row
+//     order, where a level's rows are spread over many blocks; each row's
+//     code and reads are the same in every order. Grouped, a level's rows
+//     share blocks with other levels' rows, as in row order, and the
+//     factors timed within 1% of row order. A group stays well under the
+//     resident window, so that several are in flight: a group larger than
+//     the window brings back row order's chains inside it. A level of more
+//     than 2,048 rows (the large levels of the 1M-row factors) stays alone.
 //   * The dependencies. Lanes stride over the row's nonzeros, forward for
 //     lower and backward for upper, so that the rows finished last (the
 //     nearest to the diagonal) come last and the rest is summed while they
 //     are pending. Entries on the diagonal and on the other side of it are
 //     skipped. In batches of kBatch entries a lane loads its columns' flags
 //     (relaxed, at gpu scope, all in flight together). Where some are not
-//     set, lane 0 alone polls the warp's latest pending row, then the lanes
-//     check theirs again: a window of thousands of waiting warps would
-//     otherwise keep L2 busy with one poll per pending entry. Then each
+//     set, lane 0 alone polls one pending row, then the lanes check theirs
+//     again: a window of thousands of waiting warps would otherwise keep L2
+//     busy with one poll per pending entry. The row polled is the pending
+//     one nearest the diagonal: a genuine dependency, so the wait ends, and
+//     the loop re-checks every flag after it. (Polling the one latest in
+//     level order instead, through the inverse of perm, was 7-10% slower on
+//     every factor in one call on an H100: IC(0) forward 5,718 against 5,181
+//     us, chol-nd-poisson2d-1000 L 8,105 against 7,422.) Then each
 //     lane issues an acquire fence and reads x through L2 (__ldcg: never
 //     the non-coherent path, and x is not const).
 //   * The finish. A shuffle tree adds the 32 partial sums; lane 0 writes
 //     x_r = (b_r - sum) * inv_diag_r (inv_diag = 1 for a unit diagonal), and
-//     after all K columns a release fence, then the row's flag.
+//     after all K columns lane 0's release store sets the row's flag.
 //   * K > 1: each lane holds a chunk of KC <= 16 partial sums in registers
 //     (KC <= 8 in the f64 build: its doubles spilled at 16, 8 bytes, by
 //     nvcc's -Xptxas -v report in build/sblas_torch/*.log); chunks loop
@@ -52,6 +84,9 @@
 // 3.35 TB/s), but a chain of dependent rows costs one flag round trip
 // through L2, an x read and a write each, and a Cholesky factor's separator
 // rows form such chains.
+//
+// Each row's arithmetic does not depend on the ticket order, so level order
+// and row order give the same bits.
 //
 // Flags and the ticket are cleared with cudaMemsetAsync on the launch's
 // stream before each solve, so a solve can be captured in a CUDA graph.
@@ -106,7 +141,8 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
                 const int* __restrict__ indices,
                 const T* __restrict__ values,
                 const T* __restrict__ inv_diag,
-                const T* __restrict__ b, T* x, int* flags) {
+                const int* __restrict__ perm, const T* __restrict__ b, T* x,
+                int* flags) {
   __shared__ int block_ticket;
   int* ticket = flags + n;
   if (threadIdx.x == 0) block_ticket = atomicAdd(ticket, 1);
@@ -115,7 +151,7 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
   const long long t =
       static_cast<long long>(block_ticket) * kWarps + (threadIdx.x >> 5);
   if (t >= n) return;  // the whole warp leaves together
-  const int row = lower ? static_cast<int>(t) : n - 1 - static_cast<int>(t);
+  const int row = __ldg(perm + t);
   const int begin = __ldg(indptr + row);
   const int end = __ldg(indptr + row + 1);
   const int len = end - begin;
@@ -129,10 +165,13 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
     for (int q = 0; q < KC; ++q) acc[q] = 0;
     // the walk's i-th entry: forward for lower, backward for upper. Every
     // lane runs the same batches, so that the warp can wait together.
+    // a dependency: strictly on this side of the diagonal (an entry past
+    // the row's end reads as the diagonal). Tested where it is used rather
+    // than kept in kBatch predicate registers.
+    auto dep = [=](int c) { return lower ? c < row : c > row; };
     for (int i0 = 0; i0 < len; i0 += 32 * kBatch) {
       int col[kBatch];
       T val[kBatch];
-      bool dep[kBatch];
       bool any = false;
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
@@ -144,18 +183,17 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
           col[q] = __ldg(indices + j);
           val[q] = __ldg(values + j);
         }
-        dep[q] = lower ? col[q] < row : col[q] > row;
-        any |= dep[q];
+        any |= dep(col[q]);
       }
       if (!__any_sync(kFull, any)) continue;
       int ready[kBatch];
 #pragma unroll
       for (int q = 0; q < kBatch; ++q)
-        ready[q] = dep[q] ? load_relaxed(flags + col[q]) : 1;
-      // Lane 0 alone waits for the warp's latest pending dependency (the
-      // largest ticket), then each lane checks its own flags again, until
-      // none is pending: one poller a warp, not one a pending entry, so
-      // that a window of waiting warps does not flood L2 with polls.
+        ready[q] = dep(col[q]) ? load_relaxed(flags + col[q]) : 1;
+      // Lane 0 alone waits for the warp's pending dependency nearest the
+      // diagonal, then each lane checks its own flags again, until none is
+      // pending: one poller a warp, not one a pending entry, so that a
+      // window of waiting warps does not flood L2 with polls.
       while (true) {
         int latest = -1;
 #pragma unroll
@@ -173,7 +211,7 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
       fence_acq_rel();  // the x reads below see what the flags released
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
-        if (dep[q]) {
+        if (dep(col[q])) {
           const T* xc = x + static_cast<long long>(col[q]) * k + c0;
 #pragma unroll
           for (int p = 0; p < KC; ++p)
@@ -193,30 +231,30 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
         if (p < w) x[base + c0 + p] = (__ldg(b + base + c0 + p) - acc[p]) * inv;
     }
   }
-  if (lane == 0) {
-    __threadfence();
-    store_release(flags + row, 1);
-  }
+  // lane 0 wrote every x of the row: its release store orders them
+  // before the flag
+  if (lane == 0) store_release(flags + row, 1);
 }
 
 template <typename T, int KC>
 cudaError_t launch_chunk(int n, int k, int lower, const void* indptr,
                          const void* indices, const void* values,
-                         const void* inv_diag, const void* b, void* x,
-                         void* flags, cudaStream_t stream) {
+                         const void* inv_diag, const void* perm,
+                         const void* b, void* x, void* flags,
+                         cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kWarps - 1) / kWarps);
   sptrsv_syncfree<T, KC><<<blocks, kBlock, 0, stream>>>(
       n, k, lower, static_cast<const int*>(indptr),
       static_cast<const int*>(indices), static_cast<const T*>(values),
-      static_cast<const T*>(inv_diag), static_cast<const T*>(b),
-      static_cast<T*>(x), static_cast<int*>(flags));
+      static_cast<const T*>(inv_diag), static_cast<const int*>(perm),
+      static_cast<const T*>(b), static_cast<T*>(x), static_cast<int*>(flags));
   return cudaGetLastError();
 }
 
 template <typename T>
 int solve(int n, int k, int lower, const void* indptr, const void* indices,
-          const void* values, const void* inv_diag, const void* b, void* x,
-          void* flags, void* stream) {
+          const void* values, const void* inv_diag, const void* perm,
+          const void* b, void* x, void* flags, void* stream) {
   if (n <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
   // the widest chunk: 16 columns, 8 in f64 (see the note at the top)
   constexpr int kWide = sizeof(T) == sizeof(double) ? 8 : 16;
@@ -226,19 +264,19 @@ int solve(int n, int k, int lower, const void* indptr, const void* indices,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k == 1) {
     err = launch_chunk<T, 1>(n, k, lower, indptr, indices, values, inv_diag,
-                             b, x, flags, s);
+                             perm, b, x, flags, s);
   } else if (k == 2) {
     err = launch_chunk<T, 2>(n, k, lower, indptr, indices, values, inv_diag,
-                             b, x, flags, s);
+                             perm, b, x, flags, s);
   } else if (k <= 4) {
     err = launch_chunk<T, 4>(n, k, lower, indptr, indices, values, inv_diag,
-                             b, x, flags, s);
+                             perm, b, x, flags, s);
   } else if (k <= 8) {
     err = launch_chunk<T, 8>(n, k, lower, indptr, indices, values, inv_diag,
-                             b, x, flags, s);
+                             perm, b, x, flags, s);
   } else {
     err = launch_chunk<T, kWide>(n, k, lower, indptr, indices, values,
-                                 inv_diag, b, x, flags, s);
+                                 inv_diag, perm, b, x, flags, s);
   }
   return static_cast<int>(err);
 }
@@ -246,25 +284,26 @@ int solve(int n, int k, int lower, const void* indptr, const void* indices,
 }  // namespace
 
 // x (n, k) = op(L)^{-1} b (n, k), both row-major in the values' type (f32
-// or f64); `lower` selects the side (1 lower, 0 upper). `flags` holds n + 1
-// ints of scratch (the rows' flags, then the ticket), cleared here on
-// `stream` before the launch. Pointers are device pointers on the current
-// device. Returns the cudaError_t of the memset or the launch (0 on
-// success).
+// or f64); `lower` selects the side (1 lower, 0 upper). `perm` (n ints)
+// is the order rows are solved in, each row after all its dependencies.
+// `flags` holds n + 1 ints of scratch (the rows' flags, then the ticket),
+// cleared here on `stream` before the launch. Pointers are device pointers
+// on the current device. Returns the cudaError_t of the memset or the
+// launch (0 on success).
 extern "C" int sblas_sptrsv_csr_f32(int n, int k, int lower,
                                     const void* indptr, const void* indices,
                                     const void* values, const void* inv_diag,
-                                    const void* b, void* x, void* flags,
-                                    void* stream) {
-  return solve<float>(n, k, lower, indptr, indices, values, inv_diag, b, x,
-                      flags, stream);
+                                    const void* perm, const void* b, void* x,
+                                    void* flags, void* stream) {
+  return solve<float>(n, k, lower, indptr, indices, values, inv_diag, perm,
+                      b, x, flags, stream);
 }
 
 extern "C" int sblas_sptrsv_csr_f64(int n, int k, int lower,
                                     const void* indptr, const void* indices,
                                     const void* values, const void* inv_diag,
-                                    const void* b, void* x, void* flags,
-                                    void* stream) {
-  return solve<double>(n, k, lower, indptr, indices, values, inv_diag, b, x,
-                       flags, stream);
+                                    const void* perm, const void* b, void* x,
+                                    void* flags, void* stream) {
+  return solve<double>(n, k, lower, indptr, indices, values, inv_diag, perm,
+                       b, x, flags, stream);
 }

@@ -6,8 +6,11 @@
         -o build/sblas_torch/libsblas_torch_host_<h>.so factor.cpp
 
 (``-march=native`` as the JAX package builds its own copy, so that both
-round alike), where ``<h>`` hashes the source and the flags: a library
-built from another source is never loaded. A missing ``g++`` or a failed
+round alike), where ``<h>`` hashes the source, the flags and
+:func:`host_tag`, what ``-march=native`` resolves to on this host (``g++
+-march=native -Q --help=target``): a library built from another source,
+or for another CPU or compiler, is never loaded, so a ``build/`` copied
+from one machine to another rebuilds. A missing ``g++`` or a failed
 build raises ``RuntimeError`` with the compiler's output; there is no numpy
 fallback on this path (the numpy versions in :mod:`sblas_torch.solvers` are
 the plain versions the tests hold the library to).
@@ -16,6 +19,7 @@ the plain versions the tests hold the library to).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,11 +36,33 @@ CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 _LIB: ctypes.CDLL | None = None
 
 
+def _cxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH: the host factorizations "
+                           "of sblas_torch cannot be built")
+    return cxx
+
+
+@functools.lru_cache(maxsize=None)
+def host_tag() -> str:
+    """What ``-march=native`` means here: g++'s version and its resolved
+    target options (``g++ -march=native -Q --help=target``), which name
+    the host CPU's architecture and instruction sets."""
+    cxx = _cxx()
+    out = [subprocess.run([cxx, *args], capture_output=True, text=True,
+                          timeout=60).stdout
+           for args in (["-dumpfullversion"],
+                        ["-march=native", "-Q", "--help=target"])]
+    return "\n".join(out)
+
+
 def library_path(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
     """Where the library built from ``src`` lives: keyed on a hash of the
-    source and the flags."""
+    source, the flags and :func:`host_tag`."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update(src.read_bytes())
+    h.update(host_tag().encode())
     return out_dir / f"libsblas_torch_host_{h.hexdigest()[:16]}.so"
 
 
@@ -45,10 +71,7 @@ def build(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
     lib = library_path(src, out_dir)
     if lib.exists():
         return lib
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found on PATH: the host factorizations "
-                           "of sblas_torch cannot be built")
+    cxx = _cxx()
     out_dir.mkdir(parents=True, exist_ok=True)
     # built under a temporary name and then renamed: a concurrent loader
     # never sees a half-written library

@@ -7,15 +7,17 @@ through double-single residual SpMVs), which it computes in f64 directly.
 :func:`prepare` checks a host triangular CSR once (square, f32 or f64
 values, a full nonzero diagonal unless ``unit_diagonal``), computes its
 dependency levels (:func:`sblas_torch.levels.level_schedule`) and uploads
-the matrix with ``inv_diag`` in the values' dtype. :func:`sptrsv_csr` then
+the matrix with ``inv_diag`` in the values' dtype, and with the kernel's
+ticket order ``perm`` (:func:`ticket_order`: level by level, small levels
+grouped). :func:`sptrsv_csr` then
 computes ``x = op(L)^{-1} b`` for ``b`` of the values' dtype, of shape
 ``(n,)`` or row-major ``(n, K)``. On CUDA tensors it
 launches the hand-written kernel of ``sblas_torch/csrc/sptrsv_csr.cu`` (see
 the note there); on CPU tensors it runs :func:`sptrsv_csr_reference`, the
 plain torch version, level by level. There is no fallback from one to the
 other. :func:`sptrsv_csr_emulate` runs the kernel's own order of work on
-the CPU (rows in ticket order, each row summed lane by lane then by the
-shuffle tree), for tests on tiny matrices.
+the CPU (rows in ticket order, ``perm``, each row summed lane by lane then
+by the shuffle tree), for tests on tiny matrices.
 
 The kernel's flags (one int a row, and the ticket) are scratch that each
 call takes from torch's caching allocator and the kernel clears on the
@@ -45,13 +47,46 @@ LAUNCHES_F64 = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n k lower
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # indptr..values
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # inv_diag b x
-             ctypes.c_void_p, ctypes.c_void_p]                   # flags stream
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # inv_diag perm b
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # x flags stream
 # value dtype -> (C symbol, its argument types: pointers and ints only, the
 # same for both builds)
 _SYMBOLS = {torch.float32: ("sblas_sptrsv_csr_f32", _ARGTYPES),
             torch.float64: ("sblas_sptrsv_csr_f64", _ARGTYPES)}
 WARP = 32       # lanes a row takes (csrc/sptrsv_csr.cu)
+# rows a group of consecutive small levels may hold in the ticket order:
+# about a quarter of the ~8,400 warps an H100 holds resident, so that
+# several groups are in flight together (the fastest of 512-4,096 on the
+# factors chip_smoke.py solves; PERF.md)
+GROUP_ROWS = 2048
+
+
+def ticket_order(levels: np.ndarray, lower: bool,
+                 group_rows: int = GROUP_ROWS) -> np.ndarray:
+    """The kernel's ticket order (int32 rows): the levels in turn, with
+    consecutive levels of few rows merged into groups of about
+    ``group_rows`` rows, and the rows of a group by row index (descending
+    for upper). A level of more than ``group_rows`` rows is a group of its
+    own. Every dependency of a row comes before it: it lies on a lower
+    level, so in the same group or an earlier one, and in the same group
+    at a lower row (a higher one for upper). ``group_rows = 0`` gives the
+    plain level order (each level a group)."""
+    levels = np.asarray(levels, dtype=np.int64)
+    n = len(levels)
+    sizes = np.bincount(levels)
+    if group_rows > 0 and len(sizes):
+        # a new group where the rows before a level cross a multiple of
+        # group_rows, and at and after each level larger than group_rows
+        before = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        big = sizes > group_rows
+        new = np.ones(len(sizes), dtype=bool)
+        new[1:] = (before[1:] // group_rows != before[:-1] // group_rows) \
+            | big[1:] | big[:-1]
+        group = np.cumsum(new)[levels]
+    else:
+        group = levels
+    rows = np.arange(n, dtype=np.int64)
+    return np.lexsort((rows if lower else -rows, group)).astype(np.int32)
 
 
 def prepare(l: CSR, device, *, lower: bool = True,
@@ -59,7 +94,9 @@ def prepare(l: CSR, device, *, lower: bool = True,
     """The operand :func:`sptrsv_csr` takes: ``l`` checked and uploaded to
     ``device`` (``to_device``'s ``shape``/``indptr``/``indices``/``data``),
     plus ``inv_diag`` (f32, 1 for ``unit_diagonal``), ``lower``, and the
-    host ``levels``/``nlevels`` the plain version walks. Raises
+    host ``levels``/``nlevels`` the plain version walks, and the ticket
+    order ``perm`` (int32 on ``device``, :func:`ticket_order`: every row's
+    dependencies come before it). Raises
     ``ValueError`` for a matrix that is not square or not f32 or f64, or a
     missing or zero diagonal entry."""
     n, n2 = l.shape
@@ -77,8 +114,20 @@ def prepare(l: CSR, device, *, lower: bool = True,
         raise ValueError(f"sptrsv_csr runs on cuda or cpu, not {device}")
     inv_diag = (1.0 / diagonal(l, unit_diagonal)).astype(l.dtype)
     levels, nlevels = level_schedule(l.indptr, l.indices, n, lower=lower)
+    perm = ticket_order(levels, lower)
     return {**to_device(l, device), "inv_diag": upload(inv_diag, device),
-            "lower": bool(lower), "levels": levels, "nlevels": nlevels}
+            "lower": bool(lower), "levels": levels, "nlevels": nlevels,
+            "perm": upload(perm, device)}
+
+
+def row_order(op: dict) -> dict:
+    """``op`` with the tickets in row order (``0..n-1`` lower, ``n-1..0``
+    upper: every dependency still comes first): the order the kernel took
+    before level order, for timing the two side by side."""
+    n, _ = op["shape"]
+    perm = torch.arange(n, dtype=torch.int32, device=op["indptr"].device)
+    return {**op, "perm": perm if op["lower"] else perm.flip(0)}
+
 
 
 def _as_2d(op: dict, b: torch.Tensor) -> torch.Tensor:
@@ -101,6 +150,10 @@ def sptrsv_csr(op: dict, b: torch.Tensor) -> torch.Tensor:
     of the values' dtype and shape ``(n,)`` or ``(n, K)``; ``x`` has ``b``'s
     shape.
 
+    The kernel solves rows in the order ``op["perm"]``, which must list
+    every row after its dependencies (:func:`row_order` gives the order
+    of rows by index).
+
     The kernel launches on the current stream of the tensors' device, which
     must be the current device."""
     global LAUNCHES, LAUNCHES_F64
@@ -117,8 +170,9 @@ def sptrsv_csr(op: dict, b: torch.Tensor) -> torch.Tensor:
     fn, err = entry(*_SYMBOLS[b2.dtype])
     rc = fn(n, k, int(op["lower"]), op["indptr"].data_ptr(),
             op["indices"].data_ptr(), op["data"].data_ptr(),
-            op["inv_diag"].data_ptr(), b2.data_ptr(), out.data_ptr(),
-            flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            op["inv_diag"].data_ptr(), op["perm"].data_ptr(), b2.data_ptr(),
+            out.data_ptr(), flags.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sptrsv_csr launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")
@@ -196,7 +250,7 @@ def _fma(a, b, c, dtype):
 
 def sptrsv_csr_emulate(op: dict, b: torch.Tensor) -> torch.Tensor:
     """The kernel's order of work on the CPU, for tiny matrices: rows in
-    ticket order (``0..n-1`` lower, ``n-1..0`` upper); lane ``l`` of 32 sums
+    ticket order (``op["perm"]``); lane ``l`` of 32 sums
     the row's ``l``-th, ``l+32``-th, ... entry (forward for lower, backward
     for upper) with fused multiply-adds in the values' dtype (:func:`_fma`);
     a shuffle tree adds the 32 sums (lane ``i`` takes lane ``i + off`` for
@@ -211,8 +265,7 @@ def sptrsv_csr_emulate(op: dict, b: torch.Tensor) -> torch.Tensor:
     inv = op["inv_diag"].cpu().numpy()
     lower = op["lower"]
     x = np.zeros((n, k), dtype=dt)
-    for t in range(n):
-        row = t if lower else n - 1 - t
+    for row in op["perm"].cpu().tolist():
         ents = np.arange(indptr[row], indptr[row + 1])
         if not lower:
             ents = ents[::-1]

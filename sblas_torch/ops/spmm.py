@@ -11,7 +11,8 @@ Routes (``method=``, or ``'auto'``):
                       and of its ``'bsr_pallas'`` at ``block_rows=64``.
 - ``'merge'``       — the hand-written CUDA nnz-balanced (merge-path) CSR
                       kernel (``kernels/spmm_csr.py``), all K columns in one
-                      call, in the matrix's own order.
+                      call, in the matrix's own order; its f64 build takes
+                      f64 matrices.
 - ``'pallas'``      — the ``'merge'`` plan (``method == 'merge'``): the JAX
                       package's w-SELL ``'pallas'`` is this function in
                       natural order.
@@ -36,8 +37,9 @@ Routes (``method=``, or ``'auto'``):
                       package's XLA routes of the same names, any value dtype.
 
 The ``block``, ``merge`` and ``pseg`` kernels take f32 matrices, values
-f32 or bf16 (``value_dtype=``); on CPU tensors their wrappers run the
-kernels' plain torch versions.
+f32 or bf16 (``value_dtype=``); ``merge`` and ``pseg`` also f64 matrices
+(the kernel's f64 build). On CPU tensors the wrappers run the kernels'
+plain torch versions.
 
 ``'auto'`` for f32 matrices (values f32 or bf16), on every device, is a
 bytes rule over three prices at ``k_hint`` (default 8) columns
@@ -48,9 +50,10 @@ gathers ``K`` floats of X a nonzero, of which the share ``X_GATHER`` costs
 device-memory bytes (the rest hits in L2; the constant from H100 timings,
 PERF.md); ``'spmv_passes'`` streams the CSR matrix K times. The cheapest
 wins; ``'block'`` only where, on CUDA, its blocks fit in half of the free
-device memory. For f64 it is ``'spmv_passes'`` (the csr kernel's f64
-build; the other kernels have no f64 build yet), and for other dtypes
-(complex) the JAX package's XLA heuristic. The route is fixed when the plan
+device memory. For f64 it prices ``'merge'`` against ``'spmv_passes'``
+the same way at 8-byte values and vectors (the block kernel has no f64
+build), and for other dtypes (complex) it is the JAX package's XLA
+heuristic. The route is fixed when the plan
 is built: a kernel launch that fails raises, and no other route is tried.
 """
 
@@ -163,12 +166,15 @@ class SpmmPlan:
             self._stream = block_stream_bytes(bsr.nblocks, bsr.num_brows,
                                               block_rows, vd.itemsize)
         elif method in ("merge", "pseg"):
-            if a.dtype != np.float32:
-                raise ValueError(f"the {method} kernel takes f32 matrices, "
-                                 f"got {a.dtype}; use ell/bucket")
-            vd = check_uploadable(a, value_dtype or torch.float32)
-            if vd not in (torch.float32, torch.bfloat16):
-                raise ValueError(f"value_dtype must be f32 or bf16, got {vd}")
+            if a.dtype not in (np.float32, np.float64):
+                raise ValueError(f"the {method} kernel takes f32 or f64 "
+                                 f"matrices, got {a.dtype}; use ell/bucket")
+            vd = check_uploadable(a, value_dtype)
+            allowed = (torch.float64,) if a.dtype == np.float64 else (
+                torch.float32, torch.bfloat16)
+            if vd not in allowed:
+                raise ValueError(f"value_dtype must be one of {allowed} for "
+                                 f"a {a.dtype} matrix, got {vd}")
             ap = a
             if method == "pseg":
                 ap, self.colperm, self.rowperm = relabeled(a)
@@ -227,12 +233,16 @@ class SpmmPlan:
 
     def _pick(self, a: CSR, value_dtype) -> tuple[str, str]:
         if a.dtype == np.float64:
+            p = self.prices(a, self.k_hint, self.block_rows, 8, 8)
+            routes = ("merge", "spmv_passes")
+            method = min(routes, key=lambda r: p[r])
             ref, why = xla_heuristic(a)
-            return "spmv_passes", (
-                "auto: float64 values -> spmv_passes (the csr kernel's f64 "
-                "build, a column a launch; the block and nnz-balanced "
-                f"kernels have no f64 build; the JAX package's auto runs its "
-                f"XLA {ref!r} route: {why})")
+            return method, (
+                f"auto: float64 values, k_hint={self.k_hint}: " + ", ".join(
+                    f"{r} {p[r] / 1e6:.1f} MB" for r in routes)
+                + f" -> {method} (the kernels' f64 builds; the block kernel "
+                f"has none; the JAX package's auto runs its XLA {ref!r} "
+                f"route: {why})")
         if a.dtype != np.float32:
             method, why = xla_heuristic(a)
             return method, f"auto: {a.dtype} -> {method} ({why})"

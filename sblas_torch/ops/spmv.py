@@ -20,7 +20,8 @@ Routes (``method=``, or ``'auto'``):
 - ``'merge'``    — the hand-written CUDA nnz-balanced (merge-path) kernel
                    (``kernels/spmm_csr.py``), through the SpMM ``'merge'``
                    plan at K = 1. It splits long rows across warps, so
-                   power-law graphs keep the card busy.
+                   power-law graphs keep the card busy. Its f64 build
+                   takes f64 matrices.
 - ``'pseg'``     — the SpMM ``'pseg'`` plan at K = 1: the same kernel on the
                    hub-relabeled matrix ``A[rowperm][:, colperm]``, the
                    counterpart of the JAX package's ``'pseg'``, by name
@@ -33,21 +34,19 @@ Routes (``method=``, or ``'auto'``):
 - ``'coo'``, ``'ell'``, ``'bucket'`` — plain torch ports of the JAX
                    package's XLA routes of the same names, any value dtype.
 
-The ``merge`` and ``pseg`` kernels take f32 matrices, values f32 or bf16
-(``value_dtype=``); ``csr`` and ``rcm`` also take f64 matrices (f64 values,
-``x`` and ``y``). On CPU tensors the wrappers run the kernels' plain torch
-versions.
+The ``csr``, ``rcm``, ``merge`` and ``pseg`` kernels take f32 matrices,
+values f32 or bf16 (``value_dtype=``), and f64 matrices (f64 values, ``x``
+and ``y``: the kernels' f64 builds). On CPU tensors the wrappers run the
+kernels' plain torch versions.
 
-``'auto'`` for f32 matrices picks between ``'csr'`` and ``'merge'`` by the
-longest row: the csr kernel walks a row of L nonzeros in L / G serial steps
-of its lane group, and when that walk would outlast both the
-nnz-balanced kernel's walk of one share and the whole CSR stream at the
-card's rate, ``'merge'`` (:func:`f32_rule`; its constants from H100
-timings, PERF.md). It never picks ``'pseg'`` or ``'rcm'``. For f64 matrices
-it picks ``'csr'`` (the f64 build), also on power-law rows where
-:func:`f32_rule` would pick ``'merge'``: the nnz-balanced kernel has no f64
-build yet. For other dtypes (complex) it is the JAX package's ELL/bucket
-heuristic.
+``'auto'`` for f32 and f64 matrices picks between ``'csr'`` and
+``'merge'`` by the longest row: the csr kernel walks a row of L nonzeros in
+L / G serial steps of its lane group, and when that walk would outlast both
+the nnz-balanced kernel's time for one share and the whole CSR stream at
+the card's rate, ``'merge'`` (:func:`f32_rule`, at the dtype's value and
+vector bytes; its constants from H100 timings, PERF.md). It never picks
+``'pseg'`` or ``'rcm'``. For other dtypes (complex) it is the JAX package's
+ELL/bucket heuristic.
 """
 
 from __future__ import annotations
@@ -74,9 +73,12 @@ NOT_PORTED = ()
 
 # the csr kernel's time for one serial step of a lane group (its time on a
 # graph over the longest row's steps: 116 ns on uk-2002 at 5%, 152 on
-# twitter7 at 2%), and the card's STREAM triad rate (3037-3042 GB/s): H100
-# timings of chip_smoke.py (PERF.md)
+# twitter7 at 2%), the nnz-balanced kernel's time at K = 1 for one wave of
+# shares of spmm_csr.UNIT_SPMV items (a launch on a 300-row band, the
+# unit_sweep's one_wave_us), and the card's STREAM triad rate (3037-3042
+# GB/s): H100 timings of chip_smoke.py (PERF.md)
 CSR_STEP_NS = 116.0
+MERGE_SHARE_NS = 5680.0
 STREAM_GBPS = 3040.0
 
 
@@ -93,36 +95,40 @@ def csr_bytes_per_iter(m: int, n: int, nnz: int, val_bytes: int,
     return csr_stream_bytes(m, nnz, val_bytes) + (n + m) * vec_bytes
 
 
-def f32_rule(a: CSR, val_bytes: int = 4) -> tuple[str, str]:
-    """``'csr'`` or ``'merge'`` for an f32 matrix, with the reason.
+def f32_rule(a: CSR, val_bytes: int = 4,
+             vec_bytes: int = 4) -> tuple[str, str]:
+    """``'csr'`` or ``'merge'`` for an f32 or f64 matrix (``val_bytes``,
+    ``vec_bytes``: 4 and 4 in f32, 8 and 8 in f64), with the reason.
 
     The csr kernel walks its longest row in ``longest / G`` serial steps of
-    one lane group; the nnz-balanced kernel's warps each walk a share of
-    ``spmm_csr.UNIT`` items in about ``UNIT / 32`` steps. ``'merge'`` when
-    the first walk, at ``CSR_STEP_NS`` a step, outlasts both the second and
-    the CSR stream at ``STREAM_GBPS``."""
+    one lane group; the nnz-balanced kernel takes no less than
+    ``MERGE_SHARE_NS``, its time for one wave of shares. ``'merge'`` when
+    the first walk, at ``CSR_STEP_NS`` a step, outlasts both that and the
+    CSR stream at ``STREAM_GBPS``."""
     m, n = a.shape
     longest = int(a.row_lengths.max(initial=0))
-    g = spmv_csr.group_size(m, a.nnz)
+    g = spmv_csr.group_size(
+        m, a.nnz, torch.float64 if vec_bytes == 8 else torch.float32)
     walk_us = longest / g * CSR_STEP_NS / 1e3
-    share_us = spmm_csr.UNIT / 32 * CSR_STEP_NS / 1e3
-    stream_us = csr_bytes_per_iter(m, n, a.nnz, val_bytes) / STREAM_GBPS / 1e3
+    share_us = MERGE_SHARE_NS / 1e3
+    stream_us = csr_bytes_per_iter(m, n, a.nnz, val_bytes,
+                                   vec_bytes) / STREAM_GBPS / 1e3
     method = "merge" if walk_us > max(share_us, stream_us) else "csr"
     return method, (f"longest row {longest} / G={g} lanes walks "
                     f"{walk_us:.1f} us {'>' if method == 'merge' else '<='} "
-                    f"max(a share's walk {share_us:.1f} us, the CSR stream "
+                    f"max(a wave of shares {share_us:.1f} us, the CSR stream "
                     f"{stream_us:.1f} us) -> {method}")
 
 
-def f64_reason(a: CSR) -> str:
-    """Why ``auto`` runs an f64 matrix on the ``csr`` kernel's f64 build:
-    what the f32 rule and the JAX package would pick instead."""
-    why = "auto: float64 values -> csr (the csr kernel's f64 build"
-    f32_pick, _ = f32_rule(a)
-    if f32_pick != "csr":
-        why += f"; the f32 rule would pick {f32_pick}, which has no f64 build"
+def f64_reason(a: CSR) -> tuple[str, str]:
+    """``auto``'s route for an f64 matrix and why: the rule of
+    :func:`f32_rule` at 8-byte values and vectors, on the kernels' f64
+    builds, and what the JAX package runs instead."""
+    method, why = f32_rule(a, 8, 8)
     ref, _ = xla_heuristic(a)
-    return why + f"; the JAX package's auto runs its XLA {ref!r} route)"
+    return method, (f"auto: float64 values, {why} (the {method} kernel's "
+                    f"f64 build; the JAX package's auto runs its XLA "
+                    f"{ref!r} route)")
 
 
 def xla_heuristic(a: CSR) -> tuple[str, str]:
@@ -155,8 +161,7 @@ class SpmvPlan:
                 method, why = f32_rule(a, vb)
                 self.route_reason = f"auto: f32 values, {why}"
             elif a.dtype == np.float64:
-                method = "csr"
-                self.route_reason = f64_reason(a)
+                method, self.route_reason = f64_reason(a)
             else:
                 method, why = xla_heuristic(a)
                 self.route_reason = f"auto: {a.dtype} -> {method} ({why})"
@@ -183,16 +188,16 @@ class SpmvPlan:
         m, n = a.shape
         val_bytes = a.data.itemsize
 
-        if method in ("csr", "rcm") and a.dtype == np.float64:
+        if method in ("csr", "merge", "pseg", "rcm") and \
+                a.dtype == np.float64:
             vd = as_torch_dtype(value_dtype or torch.float64)
             if vd != torch.float64:
                 raise ValueError(f"value_dtype must be f64 for an f64 "
                                  f"matrix, got {vd}")
         elif method in ("csr", "merge", "pseg", "rcm"):
             if a.dtype != np.float32:
-                kinds = "f32 or f64" if method in ("csr", "rcm") else "f32"
                 raise ValueError(
-                    f"the {method} kernel takes {kinds} matrices, got "
+                    f"the {method} kernel takes f32 or f64 matrices, got "
                     f"{a.dtype}; use ell/bucket")
             vd = as_torch_dtype(value_dtype or torch.float32)
             if vd not in (torch.float32, torch.bfloat16):

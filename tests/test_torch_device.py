@@ -196,6 +196,36 @@ def test_spmm_csr_vs_plain_on_card(cuda, name, vdt, unit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("unit", [None, 5, 2048])
+@pytest.mark.parametrize("name", list(CSR_MATRICES))
+def test_f64_spmm_csr_vs_plain_on_card(cuda, name, unit):
+    # the f64 build (unit 2048: more than 48 KB of shared memory a block at
+    # K = 1), alpha = 1/3, against its plain version and scipy
+    a = CSR_MATRICES[name]().astype(np.float64)
+    raw = to_device(a, cuda)
+    op = ckern.prepare(raw) if unit is None else ckern.prepare(raw, unit)
+    m, n = a.shape
+    for k in (1, 3, 8, 32):
+        rng = np.random.default_rng(k)
+        x = torch.from_numpy(rng.standard_normal((n, k))).to(cuda)
+        y = torch.from_numpy(rng.standard_normal((m, k))).to(cuda)
+        for args in ((1 / 3, -0.5, y), (1.0, 0.0, None)):
+            before, before32 = ckern.LAUNCHES_F64, ckern.LAUNCHES
+            got = ckern.spmm_csr(op, x, *args)
+            torch.cuda.synchronize()
+            assert ckern.LAUNCHES_F64 == before + 1
+            assert ckern.LAUNCHES == before32
+            assert got.dtype == torch.float64 and got.shape == (m, k)
+            want = ckern.spmm_csr_reference(op, x, *args)
+            assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= \
+                KERNEL_TOL_F64
+            yy = None if args[2] is None else args[2].cpu().numpy()
+            assert rel_err(got.cpu().numpy(), spmm_golden(
+                a, x.cpu().numpy(), args[0], args[1], yy)) < 1e-13
+            assert torch.equal(got, ckern.spmm_csr(op, x, *args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
 def test_spmm_csr_permutations_on_card(cuda, vdt):
     # the pseg plan permutes X and Y around the kernel on the relabeled
@@ -348,6 +378,43 @@ def test_sptrsv_kernel_repeats_bit_for_bit(cuda, k):
         first = skern.sptrsv_csr(op, b)
         for _ in range(20):
             assert torch.equal(skern.sptrsv_csr(op, b), first)
+
+
+def _ic0_grid():
+    """The lower triangle of a natural-order 5-point grid (the IC(0)
+    pattern): its levels are the antidiagonals."""
+    import scipy.sparse as sp
+    low = sp.tril(datasets.poisson2d(90, dtype=np.float64).to_scipy()).tocsr()
+    low.sort_indices()
+    return CSR.from_scipy(low)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", ["chol-nd", "band", "ic0-grid"])
+def test_sptrsv_level_order_is_bit_equal_to_row_order(cuda, name, dtype):
+    # tickets in the kernel's order (levels, small ones grouped) and in
+    # plain level order give the row order's bits (each row's sum runs in
+    # the same order), and repeat them 20 times
+    l = _ic0_grid() if name == "ic0-grid" else _sptrsv_cases()[name]()
+    l = l.astype(dtype)
+    for lower, a in ((True, l), (False, csr_transpose(l))):
+        op = skern.prepare(a, cuda, lower=lower)
+        rows = skern.row_order(op)
+        levels = {**op, "perm": torch.from_numpy(skern.ticket_order(
+            op["levels"], lower, 0)).to(cuda)}
+        assert not torch.equal(levels["perm"], rows["perm"])
+        for k in (1, 8):
+            b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+                (a.shape[0], k)).astype(dtype)).to(cuda)
+            got = skern.sptrsv_csr(op, b)
+            assert torch.equal(got, skern.sptrsv_csr(rows, b))
+            assert torch.equal(got, skern.sptrsv_csr(levels, b))
+            for _ in range(20):
+                assert torch.equal(skern.sptrsv_csr(op, b), got)
+            assert rel_err(got.cpu().numpy(), sptrsm_golden(
+                a, b.cpu().numpy(), lower=lower)) < \
+                (1e-3 if dtype == np.float32 else 1e-10)
 
 
 @pytest.mark.cuda

@@ -35,9 +35,10 @@ from sblas_torch import (CSR, SpmmPlan, SpmvPlan, SptrsmPlan, SptrsvPlan,
                          spmm, spmv, sptrsm, sptrsv)
 from sblas_torch.bench_lib import SOLVE_TOL
 from sblas_torch.formats import from_reference, to_device
+from sblas_torch.ops.kernels import spmm_csr as ckern
 from sblas_torch.ops.kernels import spmv_csr as kern
 from sblas_torch.ops.kernels import sptrsv_csr as skern
-from sblas_torch.ops.spmv import csr_bytes_per_iter
+from sblas_torch.ops.spmv import csr_bytes_per_iter, f32_rule
 from sblas_torch.ops.sptrsv import syncfree_bytes
 from sblas_torch.utils.timing import FP32_FLOPS, FP64_FLOPS, peak_flops
 
@@ -183,6 +184,104 @@ def test_f64_wrapper_checks_vectors_against_the_operand():
     assert (kern.LAUNCHES, kern.LAUNCHES_F64) == before
 
 
+@functools.lru_cache(maxsize=None)
+def _graph64():
+    """A power-law graph in f64 (longest row ~1,000 nonzeros), with x, y
+    and the reference's XLA f64 bucket route's answer to A x / 3 - y / 2."""
+    a = datasets.powerlaw_graph(6000, 14, seed=5, dtype=F64)
+    rng = _rng(40)
+    x, y0 = rng.standard_normal(a.shape[1]), rng.standard_normal(a.shape[0])
+    ref = np.asarray(RefSpmvPlan(a, "bucket")(x, 1 / 3, -0.5, y0))
+    return a, x, y0, ref
+
+
+@pytest.mark.parametrize("method", ["merge", "auto"])
+def test_f64_merge_spmv_vs_reference_bucket(method):
+    # the nnz-balanced kernel's f64 build (its plain version here), and the
+    # kernel's own partition emulated in f64, against the reference's f64
+    # bucket route and scipy
+    a, x, y0, ref = _graph64()
+    p = from_reference(a)
+    plan = SpmvPlan(p, method, device="cpu")
+    assert plan.method == "merge" and plan.dtype == torch.float64
+    got = _np(plan(x, 1 / 3, -0.5, y0))
+    assert got.dtype == F64
+    golden = spmv_golden(a, x, 1 / 3, -0.5, y0)
+    assert rel_err(got, golden) < SCIPY_TOL
+    assert rel_err(got, ref) < SCIPY_TOL
+    op = ckern.prepare(to_device(p, "cpu"))
+    assert op["data"].dtype == torch.float64 and op["fix"].numel() > 0
+    emu = ckern.spmm_csr_emulate(op, torch.from_numpy(x)[:, None], 1 / 3,
+                                 -0.5, torch.from_numpy(y0)[:, None])
+    assert emu.dtype == torch.float64
+    assert rel_err(_np(emu)[:, 0], got) < 1e-13
+
+
+def test_f64_merge_spmm_vs_reference_bucket():
+    a, *_ = _graph64()
+    rng = _rng(41)
+    x = rng.standard_normal((a.shape[1], 8))
+    y0 = rng.standard_normal((a.shape[0], 8))
+    ref = np.asarray(RefSpmmPlan(a, "bucket")(x, 1 / 3, -0.5, y0))
+    golden = spmm_golden(a, x, 1 / 3, -0.5, y0)
+    p = from_reference(a)
+    for method in ("merge", "auto"):
+        plan = SpmmPlan(p, method, k_hint=8, device="cpu")
+        assert plan.method == "merge"
+        got = _np(plan(x, 1 / 3, -0.5, y0))
+        assert got.dtype == F64
+        assert rel_err(got, golden) < SCIPY_TOL
+        assert rel_err(got, ref) < SCIPY_TOL
+    op = ckern.prepare(to_device(p, "cpu"), 256)
+    emu = ckern.spmm_csr_emulate(op, torch.from_numpy(x), 1 / 3, -0.5,
+                                 torch.from_numpy(y0))
+    assert rel_err(_np(emu), golden) < SCIPY_TOL
+
+
+def test_f64_auto_takes_merge_on_a_graph_and_csr_on_fem():
+    # the longest-row rule at 8-byte values and vectors, stated in the
+    # reason: merge on the graph's long rows, the csr kernel's f64 build on
+    # the FEM matrix
+    g = from_reference(_graph64()[0])
+    plan = SpmvPlan(g, device="cpu")
+    pick, why = f32_rule(g, 8, 8)
+    assert plan.method == pick == "merge"
+    assert plan.route_reason.startswith("auto: float64 values, longest row")
+    assert why in plan.route_reason and "-> merge" in plan.route_reason
+    assert "no f64 build" not in plan.route_reason
+    fem = from_reference(datasets.emulate("cant", scale=0.05, dtype=F64))
+    plan = SpmvPlan(fem, device="cpu")
+    assert plan.method == "csr" and "-> csr" in plan.route_reason
+    # SpMM: merge priced against spmv_passes at 8 bytes, both in the reason
+    mm = SpmmPlan(g, k_hint=8, device="cpu")
+    prices = SpmmPlan.prices(g, 8, val_bytes=8, vec_bytes=8)
+    assert mm.method == "merge" == min(("merge", "spmv_passes"),
+                                       key=prices.get)
+    assert f"merge {prices['merge'] / 1e6:.1f} MB" in mm.route_reason
+    assert "block" not in mm.route_reason.split("->")[0]
+
+
+def test_f64_merge_symbol_passes_alpha_and_beta_as_doubles():
+    for dtype, (symbol, argtypes) in ckern._SYMBOLS.items():
+        want = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+        assert argtypes[15] is want and argtypes[16] is want, symbol
+        assert argtypes.count(ctypes.c_float) + argtypes.count(
+            ctypes.c_double) == 2
+    assert ckern._SYMBOLS[torch.float64][0] == "sblas_spmm_csr_f64"
+    # the plain version keeps every bit of alpha and beta, and counts no
+    # launch of either build
+    n = 16
+    eye = CSR((n, n), np.arange(n + 1), np.arange(n), np.ones(n))
+    op = ckern.prepare(to_device(eye, "cpu"))
+    one = torch.ones((n, 1), dtype=torch.float64)
+    before = (ckern.LAUNCHES, ckern.LAUNCHES_F64)
+    assert (_np(ckern.spmm_csr(op, one, 1 / 3)) == 1 / 3).all()
+    assert (_np(ckern.spmm_csr(op, one, 0.0, 1 / 7, one)) == 1 / 7).all()
+    assert (ckern.LAUNCHES, ckern.LAUNCHES_F64) == before
+    with pytest.raises(ValueError, match="X must be f64"):
+        ckern.spmm_csr(op, one.float())
+
+
 # SpMM -------------------------------------------------------------------
 
 def test_pallas_ds_spmm_vs_reference():
@@ -194,10 +293,16 @@ def test_pallas_ds_spmm_vs_reference():
     ref = RefSpmmPlan(a, "pallas_ds")(x, 1 / 3, -0.5, y0)
     golden = spmm_golden(a, x, 1 / 3, -0.5, y0)
     p = from_reference(a)
+    prices = SpmmPlan.prices(p, 3, val_bytes=8, vec_bytes=8)
     for method in ("pallas_ds", "auto"):
         plan = SpmmPlan(p, method, k_hint=3, device="cpu")
-        assert plan.method == "spmv_passes"
-        assert plan._spmv.method == "csr"
+        if method == "pallas_ds":
+            assert plan.method == "spmv_passes"
+            assert plan._spmv.method == "csr"
+        else:
+            # the cheaper by the bytes model, on the kernels' f64 builds
+            assert plan.method == min(("merge", "spmv_passes"),
+                                      key=prices.get)
         got = _np(plan(x, 1 / 3, -0.5, y0))
         assert got.dtype == F64
         assert rel_err(got, golden) < SCIPY_TOL
@@ -355,11 +460,17 @@ def test_csr_bytes_model_counts_f64_by_hand():
     assert SpmvPlan(_tiny(np.float32), device="cpu").bytes_per_iter == \
         5 * 8 + 4 * 4 + 3 * 4 + 3 * 4
     # spmv_passes at K = 2: the matrix twice, X in and Y out in f64
-    plan = SpmmPlan(a, device="cpu")
+    plan = SpmmPlan(a, "pallas_ds", device="cpu")
     assert plan.method == "spmv_passes"
     assert plan.bytes_per_call(2) == 2 * (5 * 12 + 4 * 4) + (3 + 3) * 2 * 8
     assert SpmmPlan.prices(a, 2, val_bytes=8, vec_bytes=8)["spmv_passes"] \
         == 2 * hand
+    # merge (auto's pick at k_hint = 8): the matrix once, X in and Y out
+    plan = SpmmPlan(a, device="cpu")
+    assert plan.method == "merge"
+    assert plan.bytes_per_call(2) == 5 * 12 + 4 * 4 + (3 + 3) * 2 * 8
+    assert SpmmPlan.prices(a, 2, val_bytes=8, vec_bytes=8)["merge"] == \
+        5 * 12 + 4 * 4 + 5 * 2 * 8 + (3 + 3) * 2 * 8
 
 
 def test_syncfree_bytes_model_counts_f64_by_hand():

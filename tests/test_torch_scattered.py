@@ -326,6 +326,104 @@ def test_emulated_partition_matches_the_plain_version(name, k):
         assert rel_err(got.numpy(), want.numpy()) <= KERNEL_TOL
 
 
+def _one_long_row():
+    """One row of 5,000 nonzeros (several shares of 1,024 items) among
+    short and empty rows."""
+    rng = np.random.default_rng(12)
+    m, n = 700, 6000
+    rows = np.concatenate([np.full(5000, 350), rng.integers(0, 300, 2000)])
+    cols = np.concatenate([rng.permutation(n)[:5000],
+                           rng.integers(0, n, 2000)])
+    return COO((m, n), rows, cols, _dense(len(rows), 13)).tocsr()
+
+
+def _empty_rows():
+    """Runs of empty rows, in the middle and trailing."""
+    a = datasets.random_csr(400, 300, 6, seed=14, dtype=np.float32)
+    coo = a.tocoo()
+    keep = ((coo.row < 50) | (coo.row >= 150)) & (coo.row < 300)
+    return COO(a.shape, coo.row[keep], coo.col[keep], coo.data[keep]).tocsr()
+
+
+PARTITION_CASES = {
+    "uk-2002@0.003": _uk,
+    "empty rows": _empty_rows,
+    "one row over several shares": _one_long_row,
+}
+
+
+@pytest.mark.parametrize("unit", [None, 256])
+@pytest.mark.parametrize("k", [1, 4, 32])
+@pytest.mark.parametrize("name", list(PARTITION_CASES))
+def test_lane_runs_and_segmented_scan_match_the_plain_version(name, k, unit):
+    # the kernel's shares at its own unit (and a quarter of it): at K = 1
+    # the lanes' runs of the merged path and their segmented scan, at any
+    # K the carries and the warp-wide fix-up, against the plain version
+    a = from_reference(PARTITION_CASES[name]())
+    t = to_device(a, "cpu")
+    op = ckern.prepare(t) if unit is None else ckern.prepare(t, unit)
+    m, n = a.shape
+    # both paths of the fix-up: a thread alone on the graph's rows, and the
+    # whole warp on a row cut into more than SHORT_FIX + 1 shares
+    spans = np.concatenate([(sh["fix"] - sh["fix_lo"]).numpy()[
+        sh["fix"].numpy() >= 0] for sh in (op, op["spmv"])])
+    if name == "one row over several shares":
+        assert spans.max() > ckern.SHORT_FIX
+    if name == "uk-2002@0.003":
+        assert spans.min() <= ckern.SHORT_FIX
+    if name == "empty rows":
+        assert (a.row_lengths == 0).any()
+    x = torch.from_numpy(_dense((n, k), 60 + k))
+    y = torch.from_numpy(_dense((m, k), 61))
+    for args in ((2.5, -0.5, y), (1.0, 0.0, None)):
+        got = ckern.spmm_csr_emulate(op, x, *args)
+        want = ckern.spmm_csr_reference(op, x, *args)
+        assert got.dtype == torch.float32
+        assert rel_err(got.numpy(), want.numpy()) <= KERNEL_TOL
+        golden = spmm_golden(a, x.numpy(), args[0], args[1],
+                             None if args[2] is None else args[2].numpy())
+        assert rel_err(got.numpy(), golden) < TOL
+    empty = np.flatnonzero(a.row_lengths == 0)
+    np.testing.assert_array_equal(got.numpy()[empty], 0.0)
+
+
+def test_long_fixups_take_one_warp_each():
+    # the rows cut into more than SHORT_FIX + 1 shares sit at lane 0 of
+    # separate fix-up warps; the list is the same set of rows
+    a = from_reference(_long_rows())
+    t = to_device(a, "cpu")
+    part = ckern.merge_path(a.indptr, 7)
+    fix = ckern.fixup_units(a.indptr, part)
+    lo = ckern.fixup_starts(a.indptr, part, fix)
+    op = ckern.prepare(t, 7)
+    got_fix, got_lo = op["fix"].numpy(), op["fix_lo"].numpy()
+    real = got_fix >= 0
+    assert sorted(zip(got_fix[real], got_lo[real])) == sorted(zip(fix, lo))
+    assert (got_lo[~real] == -1).all()
+    long_at = np.flatnonzero(got_fix - got_lo > ckern.SHORT_FIX)
+    assert len(long_at) > 0
+    np.testing.assert_array_equal(long_at, np.arange(len(long_at)) *
+                                  ckern.WARP)
+    assert len(got_fix) == max(len(fix), ckern.WARP * len(long_at))
+
+
+def test_fixup_starts_are_where_the_cut_rows_begin():
+    # fix_lo[f]: the share holding the first nonzero of fix[f]'s first
+    # row; every share from there to fix[f] - 1 ends inside that row
+    a = from_reference(_one_long_row())
+    for unit in (7, 256, 1024):
+        op = ckern.prepare(to_device(a, "cpu"), unit)
+        part = op["part"].numpy().astype(np.int64)
+        for b, lo in zip(op["fix"].tolist(), op["fix_lo"].tolist()):
+            if b < 0:
+                continue
+            r = part[b, 0]
+            assert lo < b
+            assert part[lo, 0] + part[lo, 1] <= a.indptr[r] + r < \
+                part[lo + 1, 0] + part[lo + 1, 1]
+            assert (part[lo + 1:b + 1, 0] == r).all()
+
+
 @pytest.mark.parametrize("k", [1, 8])
 def test_permutations_around_the_kernel(k):
     # the pseg plan's drop-in call works in the graph's own order: X[colperm]

@@ -230,6 +230,27 @@ def test_factor_breakdowns_report_the_row():
         native.ic0_inplace(lo.indptr, lo.indices, lo.data.astype(np.float32))
 
 
+def test_host_library_is_keyed_on_the_host_cpu(tmp_path, monkeypatch):
+    # -march=native builds for the CPU it runs on: a library built on
+    # another host (a copied build/) must not be the one loaded here
+    src = tmp_path / "factor.cpp"
+    src.write_text("int x;\n")
+    tag = native.host_tag()
+    assert "-march=" in tag
+    here = native.library_path(src, tmp_path)
+    # the loaded library is the one keyed on this host
+    assert native.build() == native.library_path()
+    paths = {}
+    for name, other in (("another", tag.replace("-march=", "-march=another-", 1)),
+                        ("cpu a", "cpu a"), ("cpu b", "cpu b")):
+        monkeypatch.setattr(native, "host_tag", lambda other=other: other)
+        paths[name] = native.library_path(src, tmp_path)
+    assert paths["another"] != here and paths["another"].parent == here.parent
+    assert paths["cpu a"] != paths["cpu b"]
+    monkeypatch.setattr(native, "host_tag", lambda: tag)
+    assert native.library_path(src, tmp_path) == here
+
+
 def test_shift_rescue_and_errors_match_the_reference():
     # [[1, 1], [1, 1]]: both break down unshifted (a zero pivot) and are
     # rescued by the doubling shift

@@ -213,14 +213,18 @@ def test_auto_rule_is_the_bytes_model():
 
 @pytest.mark.parametrize("name", ["banded", "skewed", "m!=n", "block-dense"])
 def test_f64_auto_picks_the_reference_route(name):
-    # auto runs f64 as spmv_passes over the csr kernel's f64 build; its
-    # reason names the route the JAX package's auto runs (its XLA
-    # heuristic: bsr on the dense band), and the two agree to f64 rounding
+    # auto runs f64 on the cheaper by the bytes model of merge and
+    # spmv_passes (the kernels' f64 builds); its reason gives both prices
+    # and names the route the JAX package's auto runs (its XLA heuristic:
+    # bsr on the dense band), and the two agree to f64 rounding
     a = datasets.banded(512, 40, seed=33, dtype=np.float64) \
         if name == "block-dense" else ROUTE_MATRICES[name](np.float64)
     plan = SpmmPlan(_p(a), device="cpu")
     ref = RefPlan(a, "auto")
-    assert plan.method == "spmv_passes"
+    prices = SpmmPlan.prices(_p(a), plan.k_hint, val_bytes=8, vec_bytes=8)
+    assert plan.method == min(("merge", "spmv_passes"), key=prices.get)
+    for r in ("merge", "spmv_passes"):
+        assert f"{r} {prices[r] / 1e6:.1f} MB" in plan.route_reason
     assert repr(ref.method) in plan.route_reason
     if name == "block-dense":
         assert ref.method == "bsr"

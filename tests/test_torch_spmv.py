@@ -35,7 +35,8 @@ from sblas_torch.golden import KERNEL_TOL, value_tol
 from sblas_torch.ops.common import as_csr
 from sblas_torch.ops.kernels.spmv_csr import (GROUPS, group_size, prepare,
                                               spmv_csr, spmv_csr_reference)
-from sblas_torch.ops.spmv import _PLAN_CACHE, NOT_PORTED, SpmvPlan, spmv
+from sblas_torch.ops.spmv import (_PLAN_CACHE, NOT_PORTED, SpmvPlan,
+                                  f32_rule, spmv)
 from test_spmv import MATRICES
 
 PORT_REF_TOL = 2e-5
@@ -82,13 +83,16 @@ def test_routes_vs_reference(method, name, dtype):
 
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_f64_auto_picks_the_reference_route(name):
-    # auto runs f64 on the csr kernel's f64 build; its reason names the
-    # route the JAX package's auto runs (its XLA heuristic), and the two
-    # agree to f64 rounding
+    # auto runs f64 on the f64 build of the kernel the longest-row rule
+    # picks at 8-byte values and vectors (csr, or merge on long rows); its
+    # reason states the rule and names the route the JAX package's auto
+    # runs (its XLA heuristic), and the two agree to f64 rounding
     a = MATRICES[name](np.float64)
     plan = SpmvPlan(_p(a), device="cpu")
     ref = RefPlan(a, "auto")
-    assert plan.method == "csr"
+    pick, why = f32_rule(_p(a), 8, 8)
+    assert plan.method == pick in ("csr", "merge")
+    assert why in plan.route_reason
     assert repr(ref.method) in plan.route_reason
     x = _vec(a.shape[1], 9, np.float64)
     assert rel_err(_np(plan(x)), np.asarray(ref(x))) < 1e-13
@@ -196,23 +200,23 @@ def test_unknown_method():
 
 
 def test_csr_rejects_f64_like_the_pallas_route():
-    # the reference's w-SELL kernel refuses f64; the csr kernel has an f64
-    # build and takes it, and refuses what neither build takes: f64 values
-    # cut to f32 and complex values. The nnz-balanced kernel has no f64 build
+    # the reference's w-SELL kernel refuses f64; the csr and nnz-balanced
+    # kernels have f64 builds and take it, and refuse what neither build
+    # takes: f64 values cut to f32 and complex values
     a = datasets.random_csr(64, 64, 4, seed=8, dtype=np.float64)
     with pytest.raises(ValueError):
         RefPlan(a, "pallas")
     x = _vec(64, 3, np.float64)
-    got = _np(SpmvPlan(_p(a), "csr", device="cpu")(x))
-    assert got.dtype == np.float64
-    assert rel_err(got, spmv_golden(a, x)) < 1e-13
-    with pytest.raises(ValueError, match="f64"):
-        SpmvPlan(_p(a), "csr", value_dtype=torch.float32, device="cpu")
-    with pytest.raises(ValueError, match="f32"):
-        SpmvPlan(_p(a), "merge", device="cpu")
+    for method in ("csr", "merge"):
+        got = _np(SpmvPlan(_p(a), method, device="cpu")(x))
+        assert got.dtype == np.float64
+        assert rel_err(got, spmv_golden(a, x)) < 1e-13
+        with pytest.raises(ValueError, match="f64"):
+            SpmvPlan(_p(a), method, value_dtype=torch.float32, device="cpu")
     c = CSR(a.shape, a.indptr, a.indices, a.data.astype(np.complex128))
-    with pytest.raises(ValueError, match="f32 or f64"):
-        SpmvPlan(c, "csr", device="cpu")
+    for method in ("csr", "merge"):
+        with pytest.raises(ValueError, match="f32 or f64"):
+            SpmvPlan(c, method, device="cpu")
 
 
 def test_to_device_refuses_int32_overflow():

@@ -219,6 +219,102 @@ def test_emulate_vs_plain(gen, lower, k):
         r if lower else csr_transpose(r), b.numpy(), lower=lower)) < 2e-4
 
 
+def _grid_factor(dtype):
+    """The lower triangle of a natural-order 5-point grid: the IC(0)
+    pattern, whose levels are the grid's antidiagonals."""
+    import scipy.sparse as sps
+    a = datasets.poisson2d(16, dtype=np.float64).to_scipy()
+    low = sps.tril(a).tocsr()
+    low.sort_indices()
+    return CSR(low.shape, low.indptr.astype(np.int32),
+               low.indices.astype(np.int32), low.data.astype(dtype))
+
+
+def _sided(gen, dtype, lower):
+    if gen == "grid":
+        p = _grid_factor(dtype)
+        return p if lower else CSR.from_scipy(p.to_scipy().T.tocsr())
+    r = _factor(gen, dtype)
+    return from_reference(r if lower else csr_transpose(r))
+
+
+def _groups_by_hand(levels, group_rows):
+    """The ticket order's groups, level by level in a loop: a level of
+    more than group_rows rows alone, else with the levels after it while
+    the rows before each stay in the same multiple of group_rows."""
+    sizes = np.bincount(levels)
+    out, before, prev = [], 0, None
+    for lvl, size in enumerate(sizes):
+        key = before // group_rows
+        if not out or size > group_rows or prev[1] > group_rows \
+                or key != prev[0]:
+            out.append([])
+        out[-1].append(lvl)
+        prev, before = (key, size), before + size
+    return out
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("gen", ["random", "grid", "chol-nd-poisson2d-24"])
+def test_ticket_order_is_topological(gen, lower):
+    # every strict entry's column (a dependency) is solved before its row,
+    # in the order prepare builds and at other group sizes
+    a = _sided(gen, np.float32, lower)
+    op = skern.prepare(a, "cpu", lower=lower)
+    n = a.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    strict = a.indices < rows if lower else a.indices > rows
+    assert strict.any()
+    levels = op["levels"]
+    built = op["perm"].numpy()
+    np.testing.assert_array_equal(built, skern.ticket_order(levels, lower))
+    for g in (0, 4, 16, skern.GROUP_ROWS):
+        perm = skern.ticket_order(levels, lower, g)
+        assert perm.dtype == np.int32
+        np.testing.assert_array_equal(np.sort(perm), np.arange(n))
+        rank = np.empty(n, np.int64)
+        rank[perm] = np.arange(n)
+        assert (rank[a.indices[strict]] < rank[rows[strict]]).all()
+        if g == 0:
+            # plain level order: level by level, by row inside a level
+            # (descending for upper, as row order runs), and not row order
+            # on these factors
+            lv = levels[perm]
+            assert (np.diff(lv) >= 0).all()
+            step = np.diff(perm)[np.diff(lv) == 0]
+            assert (step > 0 if lower else step < 0).all()
+            assert not np.array_equal(perm,
+                                      skern.row_order(op)["perm"].numpy())
+            continue
+        # groups of whole levels, in turn, each by row index
+        want = []
+        for group in _groups_by_hand(levels, g):
+            members = np.flatnonzero(np.isin(levels, group))
+            want.extend(members if lower else members[::-1])
+        np.testing.assert_array_equal(perm, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("gen", ["random", "grid", "chol-nd-poisson2d-24"])
+def test_emulate_is_bit_equal_in_level_and_row_order(gen, lower, dtype):
+    # each row's sum runs in the same order whatever the ticket order, so
+    # level order gives the row order's bits
+    a = _sided(gen, dtype, lower)
+    op = skern.prepare(a, "cpu", lower=lower)
+    b = torch.from_numpy(_rhs((a.shape[0], 2 if dtype == np.float32 else 1),
+                              dtype, 17))
+    level = skern.sptrsv_csr_emulate(op, b)
+    rows = skern.sptrsv_csr_emulate(skern.row_order(op), b)
+    assert torch.equal(level, rows)
+    plain_order = skern.ticket_order(op["levels"], lower, 0)
+    assert torch.equal(skern.sptrsv_csr_emulate(
+        {**op, "perm": torch.from_numpy(plain_order)}, b), rows)
+    plain = skern.sptrsv_csr_reference(op, b)
+    assert rel_err(level.numpy(), plain.numpy()) < \
+        (1e-6 if dtype == np.float32 else 1e-14)
+
+
 def test_plan_routes_and_attributes():
     r = _factor("chol-nd-poisson2d-24", np.float32)
     p = from_reference(r)
