@@ -5,9 +5,10 @@
 
 It builds the port's CUDA kernels from the sources in the checkout and
 holds each against its plain torch version on the card (the f64 builds of
-the csr and solve kernels too). It drives the main paths a user calls,
-each with every kernel launch count set to 0 just before it and read just
-after:
+the csr and solve kernels too; the nnz-balanced kernel's rows and columns
+kernels at K > 1 on the small cases at every K from 1 to 64). It drives the
+main paths a user calls, each with every kernel launch count set to 0 just
+before it and read just after:
 
 - SpMV (``sblas_torch.spmv``, ``method="auto"``, f32 ``y = alpha A x +
   beta y``, bf16 values, ``trans``) on the emulated SuiteSparse ``cant`` at
@@ -44,7 +45,11 @@ STREAM triad, times the routes of each matrix
 against each other (``rule_picked``, ``faster_route``), times the SpMV
 csr kernel at every lanes-per-row width it takes (each width checked
 first), times each solve beside its plain version, its bound, its ns
-per level and cuSPARSE's ``triangular_solve``, and times the solvers: ms
+per level and cuSPARSE's ``triangular_solve``, the block kernel at K = 8
+and 32 at both block heights, the nnz-balanced kernel's rows and columns
+kernels (also at K = 16, where the rule switches) and the columns kernel
+in column-chunk-major order (one launch a half of X's columns) on both
+graphs at K = 8 and 32, and times the solvers: ms
 per iteration, split into the SpMV, the two triangular solves and the rest
 (IC(0)-CG, ILU(0)-BiCGSTAB and ILU(0)-GMRES(30) for 30 iterations on the
 1M-row grids), with the true residual. The solve kernel takes its tickets
@@ -52,7 +57,8 @@ level by level, small levels grouped; every factor's solve is also held
 bit for bit to, and timed beside, the same kernel in plain level order and
 in row order (its earlier ticket orders), the 1M-row IC(0)/ILU(0) factors
 included. The nnz-balanced kernel is timed at
-every share size it takes (``unit_sweep``). It imports only the port.
+every share size it takes (``unit_sweep``, K = 1, 8 and 32). It imports
+only the port.
 
 Output: one JSON line per phase; a ``{"kernels": [...]}`` line; the card's
 ``name, power.limit`` as nvidia-smi prints it; and last
@@ -127,6 +133,9 @@ def main() -> int:
                "spmm_bsr": (bkern, "LAUNCHES"),
                "spmm_csr": (ckern, "LAUNCHES"),
                "spmm_csr_f64": (ckern, "LAUNCHES_F64"),
+               "spmm_csr_rows": (ckern, "LAUNCHES_ROWS"),
+               "spmm_csr_cols": (ckern, "LAUNCHES_COLS"),
+               "spmm_csr_cols_f64": (ckern, "LAUNCHES_COLS_F64"),
                "sptrsv_csr": (skern, "LAUNCHES"),
                "sptrsv_csr_f64": (skern, "LAUNCHES_F64")}
 
@@ -316,25 +325,48 @@ def main() -> int:
         csr_cases[f"{name} hub-relabeled"] = relabeled(a)[0]
     relabel_s = time.perf_counter() - t0
     # the FEM matrices where the SpMM rule may pick the kernel: at the main
-    # path's K = 8, f32 values (uniform rows, G = 8; ~107k shares on the band)
+    # path's K = 8 and 32, f32 values (uniform rows, G = 8; ~107k shares on
+    # the band)
     csr_cases["cant"], csr_cases["fem-band-1M-112M"] = cant, fem
-    depth = {"cant": ((torch.float32,), (8,)),
+    depth = {"cant": ((torch.float32,), (8, 32)),
              "fem-band-1M-112M": ((torch.float32,), (8,))}
+    for name in graphs:
+        depth[name] = depth[f"{name} hub-relabeled"] = (
+            (torch.float32, torch.bfloat16), (1, 3, 8, 32))
+
+    def csr_kname(op, k):
+        """The counter of the kernel a launch of ``op`` with ``k`` columns
+        runs: the merge SpMV at K = 1, else the rows or the columns kernel,
+        each build on its own."""
+        f64 = op["data"].dtype == torch.float64
+        if k == 1:
+            return "spmm_csr_f64" if f64 else "spmm_csr"
+        if ckern.rows_kernel(op, k):
+            return "spmm_csr_rows"
+        return "spmm_csr_cols_f64" if f64 else "spmm_csr_cols"
+
     for name, a in csr_cases.items():
         m, n = a.shape
         errs = {}
+        # the small cases at every K the kernels take, in both of the K > 1
+        # kernels (the rule's pick and the other)
         vds, ks = depth.get(name, ((torch.float32, torch.bfloat16),
-                                   (1, 3, 8, 32)))
+                                   (1, 2, 3, 8, 16, 32, 33, 64)))
         for vd in vds:
             op = ckern.prepare(sblas_torch.to_device(a, dev, vd))
+            designs = ("rows", "cols") if name not in depth else (None,)
             for k in ks:
                 x, y = on_card(vec(n, k)), on_card(vec(m, k))
-                for alpha, beta, yy in ((2.5, -0.5, y), (1.0, 0.0, None)):
-                    label = f"{str(vd)[6:]},K={k},Y={yy is not None}"
-                    errs[label] = check_plain(
-                        "spmm_csr", f"{name} {label}",
-                        ckern.spmm_csr(op, x, alpha, beta, yy),
-                        ckern.spmm_csr_reference(op, x, alpha, beta, yy))
+                for design in designs:
+                    o = op if design is None or k == 1 else {
+                        **op, "design": design}
+                    for alpha, beta, yy in ((2.5, -0.5, y), (1.0, 0.0, None)):
+                        label = (f"{str(vd)[6:]},K={k},Y={yy is not None}"
+                                 + (f",{design}" if design else ""))
+                        errs[label] = check_plain(
+                            csr_kname(o, k), f"{name} {label}",
+                            ckern.spmm_csr(o, x, alpha, beta, yy),
+                            ckern.spmm_csr_reference(o, x, alpha, beta, yy))
                 del x, y
             shares, fixups = op["part"].shape[0] - 1, op["fix"].numel()
             del op
@@ -355,7 +387,7 @@ def main() -> int:
             for alpha, beta, yy in ((1 / 3, -0.5, y), (1.0, 0.0, None)):
                 label = f"float64,K={k},Y={yy is not None}"
                 errs[label] = check_plain(
-                    "spmm_csr_f64", f"{name} {label}",
+                    csr_kname(op, k), f"{name} {label}",
                     ckern.spmm_csr(op, x, alpha, beta, yy),
                     ckern.spmm_csr_reference(op, x, alpha, beta, yy),
                     KERNEL_TOL_F64)
@@ -414,10 +446,16 @@ def main() -> int:
                 "pseg": "spmm_csr", "block": "spmm_bsr",
                 "syncfree": "sptrsv_csr"}
 
-    def route_kernel(plan):
-        """The counter of the kernel build ``plan``'s route launches."""
+    def route_kernel(plan, k):
+        """The counter of the kernel build ``plan``'s route launches for an
+        output of ``k`` columns (the SpMV passes launch at K = 1)."""
         route = plan._spmv.method if plan.method == "spmv_passes" \
             else plan.method
+        if route in ("merge", "pseg"):
+            vt = torch.float64 if plan.dtype == torch.float64 \
+                else torch.float32
+            return csr_kname({"data": torch.empty(0, dtype=vt)},
+                             1 if plan.method == "spmv_passes" else k)
         kname = by_route[route]
         return kname + "_f64" if plan.dtype == torch.float64 else kname
 
@@ -426,7 +464,7 @@ def main() -> int:
         out = call()
         torch.cuda.synchronize()
         plan = plan_of()
-        kname = route_kernel(plan)
+        kname = route_kernel(plan, out.shape[1] if out.dim() == 2 else 1)
         if launched(kname) == before[kname]:
             raise RuntimeError(f"{name} {label}: route {plan.method!r} "
                                f"({plan.route_reason}) launched no {kname}")
@@ -541,7 +579,7 @@ def main() -> int:
             spmm_main_path(name, a, k, {"bf16"})
     spmm_launches = counts()
     emit({"phase": "launches", "path": "spmm", **spmm_launches})
-    for kname in ("spmm_bsr", "spmm_csr"):
+    for kname in ("spmm_bsr", "spmm_csr_rows", "spmm_csr_cols"):
         if spmm_launches[kname] == 0:
             raise RuntimeError(f"the SpMM main path never launched {kname}")
     launches = {name: spmv_launches[name] + spmm_launches[name]
@@ -677,7 +715,8 @@ def main() -> int:
         solve_main_path(name, factors64[name], np.float64)
     f64_launches = counts()
     emit({"phase": "launches", "path": "f64", **f64_launches})
-    for kname in ("spmv_csr_f64", "spmm_csr_f64", "sptrsv_csr_f64"):
+    for kname in ("spmv_csr_f64", "spmm_csr_f64", "spmm_csr_cols_f64",
+                  "sptrsv_csr_f64"):
         if f64_launches[kname] == 0:
             raise RuntimeError(f"the f64 main path never launched {kname}")
     launches = {name: launches[name] + f64_launches[name]
@@ -789,7 +828,7 @@ def main() -> int:
 
     timings = {}
     for name, a in (("cant", cant), ("fem-band-1M-112M", fem)):
-        rec = bench_spmv(a, method="csr", ratio_pairs=3, device=dev)
+        rec = bench_spmv(a, method="csr", ratio_pairs=2, device=dev)
         rec16 = bench_spmv(a, method="csr", value_dtype=torch.bfloat16,
                            device=dev, baseline=False)
         merge = bench_spmv(a, method="merge", device=dev, baseline=False)
@@ -839,7 +878,7 @@ def main() -> int:
     # route, and SpMM at K = 8 (merge, spmv_passes, bucket); SpMM on cant
     # at K = 8 (auto) against the torch bsr route and cuSPARSE's addmm ---
     for name, a in (("cant", cant64), ("fem-band-1M-112M", fem64)):
-        rec = bench_spmv(a, method="csr", ratio_pairs=3, device=dev)
+        rec = bench_spmv(a, method="csr", ratio_pairs=2, device=dev)
         t = sblas_torch.to_device(a, dev)
         x0 = on_card(vec64(a.shape[1]))
         plain = us(lambda x, x0: kern.spmv_csr_reference(t, x, EPS, 1.0, x0),
@@ -879,19 +918,26 @@ def main() -> int:
           "route_reason": _get_plan(uk64, "auto").route_reason,
           "faster_route": min(route_times, key=route_times.get),
           "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
-    del t, x0, routes
+    del x0, routes
     routes = {r: bench_spmm(uk64, 8, method=r, device=dev,
                             baseline=r == "merge")
               for r in ("merge", "spmv_passes", "bucket")}
     route_times = {r: rec.seconds_per_iter * 1e6 for r, rec in routes.items()}
+    x0 = on_card(vec64(uk64.shape[1], 8))
+    timings["uk-2002@0.05 f64 K=8"] = {
+        "kernel_us": route_times["merge"],
+        "bound_us": routes["merge"].extra["bound_us"],
+        "bound_by": routes["merge"].extra["bound_by"],
+        "cusparse_us": routes["merge"].extra["baseline_us"],
+        "plain_us": us(lambda x, x0: ckern.spmm_csr_reference(
+            t, x, EPS, 1.0, x0), x0, **few)}
     emit({"phase": "spmm_timing", "matrix": "uk-2002@0.05",
           "dtype": "float64", "k": 8, "card": card, "route_us": route_times,
-          "bound_us": routes["merge"].extra["bound_us"],
-          "cusparse_us": routes["merge"].extra["baseline_us"],
+          **timings["uk-2002@0.05 f64 K=8"],
           "rule_picked": spmm_plan(uk64, "auto", k_hint=8).method,
           "faster_route": min(route_times, key=route_times.get),
           "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
-    del uk64, routes
+    del uk64, routes, t, x0
     rec = bench_spmm(cant64, 8, method="auto", device=dev)
     others = {r: bench_spmm(cant64, 8, method=r, device=dev,
                             baseline=False).seconds_per_iter * 1e6
@@ -947,6 +993,30 @@ def main() -> int:
             nbytes = csr_stream_bytes(m, a.nnz, 4) + (n + 2 * m) * k * 4
             row["bound_us"], row["bound_by"] = bound_us(nbytes,
                                                         2 * a.nnz * k)
+            if k > 1:
+                # both K > 1 kernels, and the columns kernel in
+                # column-chunk-major order: one launch a half of X's
+                # columns (each half contiguous), every share of the first
+                # half before the second's. Each checked first
+                want = ckern.spmm_csr_reference(nat, x0, 2.5)
+                row["rule_kernel"] = csr_kname(nat, k)
+                cols = {**nat, "design": "cols"}
+                for key, o in (("rows_us", {**nat, "design": "rows"}),
+                               ("cols_us", cols)):
+                    check_plain(csr_kname(o, k), f"{name} K={k} {key}",
+                                ckern.spmm_csr(o, x0, 2.5), want)
+                    row[key] = us(lambda x, x0, o=o: ckern.spmm_csr(
+                        o, x, EPS, 1.0, x0), x0)
+                lo, hi = (x0[:, :k // 2].contiguous(),
+                          x0[:, k // 2:].contiguous())
+                check_plain("spmm_csr_cols", f"{name} K={k} chunk-major",
+                            torch.cat([ckern.spmm_csr(cols, h, 2.5)
+                                       for h in (lo, hi)], 1), want)
+                row["cols_chunk_major_us"] = us(
+                    lambda x, x0, hi=hi: (
+                        ckern.spmm_csr(cols, hi, EPS, 1.0, hi),
+                        ckern.spmm_csr(cols, x, EPS, 1.0, x0))[1], lo)
+                del want, lo, hi
             if k == 1:
                 v0 = x0.view(-1)
                 row["cusparse_us"] = us(lambda x, x0: torch.addmv(
@@ -979,20 +1049,34 @@ def main() -> int:
                   "route_us": routes, "rule_picked": picked,
                   "faster_route": min(routes, key=routes.get)})
             del x0
-        del nat, rel, sp
+        # K = 16, the last K the rule gives the rows kernel: both K > 1
+        # kernels, each checked first
+        x0 = on_card(vec(n, 16))
+        want = ckern.spmm_csr_reference(nat, x0, 2.5)
+        row = {"rule_kernel": csr_kname(nat, 16)}
+        for design in ("rows", "cols"):
+            o = {**nat, "design": design}
+            check_plain(csr_kname(o, 16), f"{name} K=16 {design}",
+                        ckern.spmm_csr(o, x0, 2.5), want)
+            row[f"{design}_us"] = us(lambda x, x0, o=o: ckern.spmm_csr(
+                o, x, EPS, 1.0, x0), x0)
+        emit({"phase": "k_switch", "matrix": name, "k": 16, "card": card,
+              **row})
+        del nat, rel, sp, x0, want
 
     # 6c. the share size: the nnz-balanced kernel at each unit of merged-path
-    # items on both graphs, K = 1 and 8, each unit checked against the
-    # plain version before it is timed
+    # items on both graphs, K = 1, 8 (the rows kernel) and 32 (the columns
+    # kernel), each unit checked against the plain version before it is
+    # timed
     for name, a in graphs.items():
         t = sblas_torch.to_device(a, dev)
         sweep, errs = {}, {}
-        for k in (1, 8):
+        for k in (1, 8, 32):
             x0 = on_card(vec(a.shape[1], k))
             for unit in (256, 384, 512, 1024, 2048):
                 op = ckern.prepare(t, unit)
                 errs[f"{unit},K={k}"] = check_plain(
-                    "spmm_csr", f"{name} unit={unit} K={k}",
+                    csr_kname(op, k), f"{name} unit={unit} K={k}",
                     ckern.spmm_csr(op, x0, 2.5),
                     ckern.spmm_csr_reference(op, x0, 2.5))
                 sweep[f"{unit},K={k}"] = us(
@@ -1000,7 +1084,8 @@ def main() -> int:
                     x0)
                 del op
         emit({"phase": "unit_sweep", "matrix": name, "card": card,
-              "rule_unit": ckern.UNIT, "rule_unit_spmv": ckern.UNIT_SPMV,
+              "rule_unit": ckern.UNIT, "rule_unit_cols": ckern.UNIT_COLS,
+              "rule_unit_spmv": ckern.UNIT_SPMV,
               "us": sweep, "rel_err": errs})
         del t, x0
     # a matrix of a few shares: the kernel's time for one wave of shares,
@@ -1023,12 +1108,10 @@ def main() -> int:
     # 7. SpMM timing on the FEM matrices: the block kernel, its plain
     # version, cuSPARSE, the bound and the other routes -----------------
     spmm_timings = {}
-    fem_rows = [(name, a, k, 128) for name, a in fem_suite.items()
-                for k in (8, 32)]
-    fem_rows += [(name, fem_suite[name], 8, 64) for name in ("consph",
-                                                             "pdb1HYS")]
+    fem_rows = [(name, a, k, br) for name, a in fem_suite.items()
+                for k in (8, 32) for br in (128, 64)]
     for name, a, k, br in fem_rows:
-        rec = bench_spmm(a, k, method="block", block_rows=br, ratio_pairs=3,
+        rec = bench_spmm(a, k, method="block", block_rows=br, ratio_pairs=2,
                          device=dev)
         row = {"kernel_us": rec.seconds_per_iter * 1e6,
                "bound_us": rec.extra["bound_us"],
@@ -1114,10 +1197,13 @@ def main() -> int:
         plain_us = {k: us(lambda x, b0: skern.sptrsv_csr_reference(
             op, b0 + EPS * x), on_card(mk(l.shape[0], k)), **solve_few)
             for k in (1, 8)}
-        orders = {"K=1": order_us(op, on_card(mk(l.shape[0], 1))),
-                  "K=8": order_us(op, on_card(mk(l.shape[0], 8))),
+        # the 1M-row factor's three orders in one turn (its row order takes
+        # 20-116 ms a solve), the others in two
+        turns = 1 if l.shape[0] >= 1_000_000 else 2
+        orders = {"K=1": order_us(op, on_card(mk(l.shape[0], 1)), turns),
+                  "K=8": order_us(op, on_card(mk(l.shape[0], 8)), turns),
                   "trans K=1": order_us(sptrsv_plan(lt, lower=False)._op,
-                                        on_card(mk(l.shape[0], 1)))}
+                                        on_card(mk(l.shape[0], 1)), turns)}
         del op
         rows = {}
         for label, rec in recs.items():
@@ -1245,11 +1331,14 @@ def main() -> int:
           "solve_golden_s": solve_golden_s,
           "solver_generate_s": solver_gen_s})
     main = spmm_timings[("consph", 8, 128)]
+    tw1 = graph_timings[("twitter7@0.02", 1)]
     tw = graph_timings[("twitter7@0.02", 8)]
+    uk32 = graph_timings[("uk-2002@0.05", 32)]
     big = solve_timings["chol-nd-poisson2d-1000"]["K=1"]
     big64 = solve_timings["chol-nd-poisson2d-1000 f64"]["K=1"]
     cant_f64 = timings["cant f64"]
     uk_f64 = timings["uk-2002@0.05 f64"]
+    uk8_f64 = timings["uk-2002@0.05 f64 K=8"]
     emit({"kernels": [
         {"name": "spmv_csr", "route": "cuda",
          "source": "sblas_torch/csrc/spmv_csr.cu",
@@ -1272,15 +1361,37 @@ def main() -> int:
          "shape": "consph f32 K=8"},
         {"name": "spmm_csr", "route": "cuda",
          "source": "sblas_torch/csrc/spmm_csr.cu",
-         "replaces": ["sblas/ops/kernels/spmv_pseg.py:37",
-                      "sblas/ops/kernels/spmm_pseg.py:134",
+         "replaces": "sblas/ops/kernels/spmv_pseg.py:37",
+         "launches": launches["spmm_csr"], "max_abs_err": max_abs["spmm_csr"],
+         "ms": tw1["kernel_us"] / 1e3, "plain_ms": tw1["plain_us"] / 1e3,
+         "bound_ms": tw1["bound_us"] / 1e3, "bound_by": tw1["bound_by"],
+         "library_ms": tw1["cusparse_us"] / 1e3,
+         "shape": "twitter7@0.02 f32 K=1, natural order (route merge; "
+                  "spmv_merge_kernel)"},
+        {"name": "spmm_csr_rows", "route": "cuda",
+         "source": "sblas_torch/csrc/spmm_csr.cu",
+         "replaces": ["sblas/ops/kernels/spmm_pseg.py:134",
                       "sblas/ops/kernels/spmm_pseg.py:350",
                       "sblas/ops/kernels/spmm_pallas.py:30"],
-         "launches": launches["spmm_csr"], "max_abs_err": max_abs["spmm_csr"],
+         "launches": launches["spmm_csr_rows"],
+         "max_abs_err": max_abs["spmm_csr_rows"],
          "ms": tw["kernel_us"] / 1e3, "plain_ms": tw["plain_us"] / 1e3,
          "bound_ms": tw["bound_us"] / 1e3, "bound_by": tw["bound_by"],
          "library_ms": tw["cusparse_us"] / 1e3,
-         "shape": "twitter7@0.02 f32 K=8, natural order (route merge)"},
+         "shape": "twitter7@0.02 f32 K=8, natural order (route merge; "
+                  "spmm_rows_kernel)"},
+        {"name": "spmm_csr_cols", "route": "cuda",
+         "source": "sblas_torch/csrc/spmm_csr.cu",
+         "replaces": ["sblas/ops/kernels/spmm_pseg.py:134",
+                      "sblas/ops/kernels/spmm_pseg.py:350",
+                      "sblas/ops/kernels/spmm_pallas.py:30"],
+         "launches": launches["spmm_csr_cols"],
+         "max_abs_err": max_abs["spmm_csr_cols"],
+         "ms": uk32["kernel_us"] / 1e3, "plain_ms": uk32["plain_us"] / 1e3,
+         "bound_ms": uk32["bound_us"] / 1e3, "bound_by": uk32["bound_by"],
+         "library_ms": uk32["cusparse_us"] / 1e3,
+         "shape": "uk-2002@0.05 f32 K=32, natural order (route merge; "
+                  "spmm_merge_kernel)"},
         {"name": "sptrsv_csr", "route": "cuda",
          "source": "sblas_torch/csrc/sptrsv_csr.cu",
          "replaces": ["sblas/ops/kernels/sptrsv_pallas.py:510",
@@ -1305,16 +1416,28 @@ def main() -> int:
          "shape": "cant f64"},
         {"name": "spmm_csr_f64", "route": "cuda",
          "source": "sblas_torch/csrc/spmm_csr.cu",
-         "replaces": ["sblas/ops/kernels/spmv_pseg.py:37",
-                      "sblas/ops/kernels/spmm_pseg.py:134",
-                      "sblas/ops/kernels/spmm_pseg.py:350",
-                      "sblas/ops/kernels/spmm_pallas.py:30"],
+         "replaces": "sblas/ops/kernels/spmv_pseg.py:37",
          "launches": launches["spmm_csr_f64"],
          "max_abs_err": max_abs["spmm_csr_f64"],
          "ms": uk_f64["kernel_us"] / 1e3, "plain_ms": uk_f64["plain_us"] / 1e3,
          "bound_ms": uk_f64["bound_us"] / 1e3, "bound_by": uk_f64["bound_by"],
          "library_ms": uk_f64["cusparse_us"] / 1e3,
-         "shape": "uk-2002@0.05 f64, K=1 (route merge, auto's f64 pick)"},
+         "shape": "uk-2002@0.05 f64, K=1 (route merge, auto's f64 pick; "
+                  "spmv_merge_kernel)"},
+        {"name": "spmm_csr_cols_f64", "route": "cuda",
+         "source": "sblas_torch/csrc/spmm_csr.cu",
+         "replaces": ["sblas/ops/kernels/spmm_pseg.py:134",
+                      "sblas/ops/kernels/spmm_pseg.py:350",
+                      "sblas/ops/kernels/spmm_pallas.py:30"],
+         "launches": launches["spmm_csr_cols_f64"],
+         "max_abs_err": max_abs["spmm_csr_cols_f64"],
+         "ms": uk8_f64["kernel_us"] / 1e3,
+         "plain_ms": uk8_f64["plain_us"] / 1e3,
+         "bound_ms": uk8_f64["bound_us"] / 1e3,
+         "bound_by": uk8_f64["bound_by"],
+         "library_ms": uk8_f64["cusparse_us"] / 1e3,
+         "shape": "uk-2002@0.05 f64 K=8 (route merge, auto's f64 pick; "
+                  "spmm_merge_kernel)"},
         {"name": "sptrsv_csr_f64", "route": "cuda",
          "source": "sblas_torch/csrc/sptrsv_csr.cu",
          "replaces": ["sblas/ops/kernels/sptrsv_ds.py:65",

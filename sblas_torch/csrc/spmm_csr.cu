@@ -54,14 +54,39 @@
 //     which completes the row each lane closes first and leaves the share's
 //     last, cut row in lane 31.
 //
-// K > 1 (spmm_csr_kernel) keeps the first design: inside its share a warp
-// takes rows by groups of G lanes (G from the mean row length, as the csr
-// SpMV kernel does), each lane striding over the row's nonzeros and
-// keeping KC columns of K (4, 8 or 16; at most 8 in f64) in registers: one
-// value and index load serves every column of the chunk, X's row slice
-// comes as 16-byte loads where K allows. A row slice longer than 8 G goes
-// to the whole warp instead. The K-chunks of one share run on neighbouring
-// warps.
+// K > 1 has two kernels. What bounded the first design, which walked a
+// share 32 / G rows at a time, G lanes a row, KC columns of K (up to 16, 8
+// in f64) in each lane's registers: at K = 32 it took 927 us on
+// uk-2002@0.05 and 1,467 on twitter7@0.02 (6.5-8.9x the bound; cuSPARSE's
+// addmm 864 and 1,490) and 79.8 on cant in f64 at K = 8 (H100 80GB HBM3,
+// 700 W; PERF.md). Each lane's loads depended on each other (an index,
+// then X at that index: one gather in flight), and the K-chunks of a
+// share, on neighbouring warps, walked the CSR stream twice at K = 32 (f64:
+// four times), with all of X live. Now:
+//
+//   * spmm_merge_kernel (the columns kernel) stages its share once, as
+//     the K = 1 kernel does (values, column indices and row ends;
+//     coalesced, evict-first), and gives lanes the columns: slots of W
+//     lanes (W the power of two that holds K, up to 32; 2 or 4 columns a
+//     lane past 32) take the share's nonzeros 32 / W a step, so that at K
+//     = 32 a nonzero's X row is one 128-byte warp load and a row's store
+//     one coalesced run. A lane issues 8 gathers before it uses any. A row that ends inside a step takes the products of the
+//     slots before its end, and its slots' sums meet in a shuffle tree
+//     (none from K = 17 on); no row needs a special case, since a share
+//     holds at most `unit` items of it. All of K up to 128 columns is one
+//     pass over the CSR stream. beta * Y_in is added after the walk, in a
+//     coalesced pass of the rows the share completed: read while the row
+//     closed, its load's latency stalled every row. Shares of UNIT_COLS =
+//     512 items (4 KB of shared memory a warp in f32) leave room for twice
+//     the warps of 1,024. It takes f64 at every K > 1 and f32/bf16 values
+//     past K = 16;
+//   * spmm_rows_kernel (the rows kernel, the first design) stays for f32
+//     and bf16 values up to K = 16, where it is the faster on an H100 (in
+//     one call of chip_smoke.py, rows kernel against columns kernel: K = 8
+//     uk-2002@0.05 212 us against 276, twitter7@0.02 378 against 408; K =
+//     16 382 / 442, 592 / 700; K = 32 928 / 754, 1,469 / 1,244).
+//     Rows there are short and many: its lane groups close 32 / G rows at
+//     once where the columns kernel closes them one after the other.
 //
 // Both: no atomics. A row that a share finishes is written by it, with the
 // alpha/beta epilogue fused. The row a share ends inside leaves its
@@ -102,6 +127,10 @@ constexpr int kShortFix = 8;      // fix-up: carries a thread adds alone
 constexpr int kFixBatch = 8;      // fix-up: carry loads a lane has in flight
 constexpr int kBatch = 8;         // K = 1: loads a lane has in flight
 constexpr unsigned kFull = 0xffffffffu;
+// the columns kernel with bf16 values: 8 CTAs an SM (at most 64 registers
+// a thread), under which ptxas does not spill at W = 8 as it does unbounded
+template <typename V>
+constexpr int kColsMinCtas = sizeof(V) == 2 ? 8 : 1;
 
 __device__ __forceinline__ float load_value(const float* p) { return __ldg(p); }
 
@@ -293,10 +322,11 @@ __device__ __forceinline__ void fma_row(T (&acc)[KC], T v, const T* __restrict__
   }
 }
 
-// K > 1: share `unit`'s chunk of KC columns; rows as in spmv_merge_kernel.
+// K > 1 on short rows: share `unit`'s chunk of KC columns, rows as in
+// spmv_merge_kernel, taken G lanes a row (the note at the top).
 template <typename V, typename T, int KC, int G>
 __global__ void __launch_bounds__(kThreads)
-spmm_csr_kernel(int m, int k, int units, const int* __restrict__ indptr,
+spmm_rows_kernel(int m, int k, int units, const int* __restrict__ indptr,
                 const int* __restrict__ indices, const V* __restrict__ values,
                 const int* __restrict__ part, const T* __restrict__ x,
                 const T* __restrict__ y_in, T alpha, T beta, T* __restrict__ y_out,
@@ -387,6 +417,168 @@ spmm_csr_kernel(int m, int k, int units, const int* __restrict__ indptr,
         if (q == lane && k0 + q < k) emit(lr, q, a2[q]);
       }
     }
+  }
+}
+
+// shared memory a warp of the K > 1 kernel stages its share in: the values
+// (in T) and column indices from the front, the row ends (ints) from the
+// back; nnz + rows <= unit, so both fit in unit * (sizeof(T) + 4) bytes
+template <typename T>
+__host__ __device__ constexpr size_t warp_smem_k(int unit) {
+  return (static_cast<size_t>(unit) * (sizeof(T) + 4) + 15) / 16 * 16;
+}
+
+// K > 1: share u, columns k0 .. k0 + W * CPL - 1 (k0 = blockIdx.y * W * CPL).
+// The lanes form 32 / W slots of W lanes; a step takes the share's next
+// 32 / W nonzeros, one a slot, and lane gl of a slot owns columns k0 + gl
+// + W * p (p < CPL) of X's row and of the sum. Rows as in spmv_merge_kernel.
+template <typename V, typename T, int W, int CPL>
+__global__ void __launch_bounds__(kThreads, kColsMinCtas<V>)
+spmm_merge_kernel(int m, int k, int units, int unit, const int* __restrict__ indptr,
+                  const int* __restrict__ indices, const V* __restrict__ values,
+                  const int* __restrict__ part, const T* __restrict__ x,
+                  const T* __restrict__ y_in, T alpha, T beta, T* __restrict__ y_out,
+                  T* __restrict__ carry) {
+  constexpr int kSlots = 32 / W;                  // nonzeros a step
+  constexpr int kSteps = CPL >= 4 ? 2 : 8 / CPL;  // steps of gathers in flight
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const long long u = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (u >= units) return;  // the warp leaves together; no block barrier below
+  const int k0 = static_cast<int>(blockIdx.y) * W * CPL;
+  const size_t per = warp_smem_k<T>(unit);
+  unsigned char* mine = smem + per * (threadIdx.x / 32);
+  const int r0 = __ldg(part + 2 * u);
+  const int j0 = __ldg(part + 2 * u + 1);
+  const int r1 = __ldg(part + 2 * u + 2);
+  const int j1 = __ldg(part + 2 * u + 3);
+  const int rows = r1 - r0;  // rows that end inside the share
+  const int nnz = j1 - j0;
+  T* s_val = reinterpret_cast<T*>(mine);
+  int* s_col = reinterpret_cast<int*>(s_val + nnz);
+  int* s_end = reinterpret_cast<int*>(mine + per) - rows;
+  // the share's first row began in an earlier share: written raw, fixed up
+  const bool first_cut = __ldg(indptr + r0) < j0;
+
+  // 1. stage the row ends (relative to j0), column indices and values:
+  // contiguous spans, coalesced, evict-first, kBatch loads a lane in flight
+  for (int i = lane; i < rows; i += 32) s_end[i] = __ldcs(indptr + r0 + 1 + i) - j0;
+  for (int i0 = 0; i0 < nnz; i0 += 32 * kBatch) {
+    int c[kBatch];
+    T v[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + lane + 32 * q;
+      c[q] = 0;
+      v[q] = T(0);
+      if (i < nnz) {
+        c[q] = __ldcs(indices + j0 + i);
+        v[q] = load_streamed(values + j0 + i);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + lane + 32 * q;
+      if (i < nnz) {
+        s_col[i] = c[q];
+        s_val[i] = v[q];
+      }
+    }
+  }
+  __syncwarp();
+
+  // 2. walk the share's nonzeros a step at a time; a row that ends inside a
+  // step takes the products of the slots before its end, its slots' sums
+  // meet in a shuffle tree, and the first slot stores it
+  const int g = lane / W;
+  const int gl = lane % W;
+  T acc[CPL];
+#pragma unroll
+  for (int p = 0; p < CPL; ++p) acc[p] = T(0);
+  int ri = 0;
+  int e = rows > 0 ? s_end[0] : 0x7fffffff;  // where row ri ends
+  bool col_ok[CPL];  // this lane's column p is in K
+#pragma unroll
+  for (int p = 0; p < CPL; ++p) col_ok[p] = k0 + gl + W * p < k;
+  // the slots' sums of row ri (ri == rows: the cut row, to the carry) to
+  // Y: alpha times them, the raw first row as they are; beta * Y_in comes
+  // after the walk (step 3), so that no row waits for its load
+  auto close = [&]() {
+    T s[CPL];
+#pragma unroll
+    for (int p = 0; p < CPL; ++p) {
+      s[p] = acc[p];
+      acc[p] = T(0);
+    }
+#pragma unroll
+    for (int off = W; off < 32; off <<= 1) {
+#pragma unroll
+      for (int p = 0; p < CPL; ++p) s[p] += __shfl_xor_sync(kFull, s[p], off);
+    }
+    if (g != 0) return;
+#pragma unroll
+    for (int p = 0; p < CPL; ++p) {
+      if (!col_ok[p]) continue;
+      const int col = k0 + gl + W * p;
+      if (ri == rows) {
+        carry[u * k + col] = s[p];
+        continue;
+      }
+      const long long idx = static_cast<long long>(r0 + ri) * k + col;
+      y_out[idx] = ri == 0 && first_cut ? s[p] : alpha * s[p];
+    }
+  };
+
+  for (int base = 0; base < nnz; base += kSlots * kSteps) {
+    T v[kSteps];
+    T xv[kSteps][CPL];
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q) {
+      const int i = base + q * kSlots + g;
+      const bool in = i < nnz;
+      const long long row = in ? s_col[i] : 0;
+      v[q] = in ? s_val[i] : T(0);
+#pragma unroll
+      for (int p = 0; p < CPL; ++p) {
+        xv[q][p] = in && col_ok[p] ? __ldg(x + row * k + k0 + gl + W * p) : T(0);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q) {
+      const int sb = base + q * kSlots;
+      if (sb >= nnz) continue;  // the same for the whole warp
+      bool used = false;
+      while (e < sb + kSlots) {  // row ri ends inside this step
+        if (!used && sb + g < e) {
+#pragma unroll
+          for (int p = 0; p < CPL; ++p) acc[p] = fma_t(v[q], xv[q][p], acc[p]);
+          used = true;
+        }
+        close();
+        ++ri;
+        e = ri < rows ? s_end[ri] : 0x7fffffff;
+      }
+      if (!used) {
+#pragma unroll
+        for (int p = 0; p < CPL; ++p) acc[p] = fma_t(v[q], xv[q][p], acc[p]);
+      }
+    }
+  }
+  // the row ends after the last nonzero, then the cut row r1 to the carry
+  for (; ri < rows; ++ri) close();
+  if (r1 < m) close();
+
+  // 3. beta * Y_in added to the rows the share completed (not the raw
+  // first row), a coalesced pass with its loads in flight
+  if (y_in == nullptr) return;
+  __syncwarp();  // the warp's stores above are seen by every lane
+  const int lo = first_cut ? 1 : 0;
+  const int cw = min(W * CPL, k - k0);
+  const int total = (rows - lo) * cw;
+#pragma unroll 4
+  for (int i = lane; i < total; i += 32) {
+    const long long idx = static_cast<long long>(r0 + lo + i / cw) * k + k0 + i % cw;
+    y_out[idx] += beta * __ldcs(y_in + idx);
   }
 }
 
@@ -487,30 +679,58 @@ cudaError_t launch_spmv(const Args<T>& a) {
   return cudaGetLastError();
 }
 
-template <typename V, typename T, int KC, int G>
+template <typename V, typename T, int W, int CPL>
 cudaError_t launch_main(const Args<T>& a) {
+  const long long ctas = (static_cast<long long>(a.units) + kWarps - 1) / kWarps;
+  const int chunks = (a.k + W * CPL - 1) / (W * CPL);
+  if (ctas > 0x7fffffffLL || chunks > 65535) return cudaErrorInvalidValue;
+  const size_t smem = kWarps * warp_smem_k<T>(a.unit);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spmm_merge_kernel<V, T, W, CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>(ctas), static_cast<unsigned>(chunks));
+  spmm_merge_kernel<V, T, W, CPL><<<grid, kThreads, smem, a.stream>>>(
+      a.m, a.k, a.units, a.unit, a.indptr, a.indices, static_cast<const V*>(a.values), a.part,
+      a.x, a.y_in, a.alpha, a.beta, a.y_out, a.carry);
+  return cudaGetLastError();
+}
+
+// K > 1: lanes a slot W the power of two that holds K, up to 32, and CPL
+// columns a lane beyond 32; past 128 columns the grid's y takes chunks of
+// 128
+template <typename V, typename T>
+cudaError_t launch_cols(const Args<T>& a) {
+  if (a.k <= 2) return launch_main<V, T, 2, 1>(a);
+  if (a.k <= 4) return launch_main<V, T, 4, 1>(a);
+  if (a.k <= 8) return launch_main<V, T, 8, 1>(a);
+  if (a.k <= 16) return launch_main<V, T, 16, 1>(a);
+  if (a.k <= 32) return launch_main<V, T, 32, 1>(a);
+  if (a.k <= 64) return launch_main<V, T, 32, 2>(a);
+  return launch_main<V, T, 32, 4>(a);
+}
+
+template <typename V, typename T, int KC, int G>
+cudaError_t launch_rows_main(const Args<T>& a) {
   const long long warps = static_cast<long long>(a.units) * ((a.k + KC - 1) / KC);
   const long long ctas = (warps + kWarps - 1) / kWarps;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool vec = a.k % static_cast<int>(16 / sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  spmm_csr_kernel<V, T, KC, G><<<static_cast<unsigned>(ctas), kThreads, 0, a.stream>>>(
+  spmm_rows_kernel<V, T, KC, G><<<static_cast<unsigned>(ctas), kThreads, 0, a.stream>>>(
       a.m, a.k, a.units, a.indptr, a.indices, static_cast<const V*>(a.values), a.part, a.x,
       a.y_in, a.alpha, a.beta, a.y_out, a.carry, vec);
   return cudaGetLastError();
 }
 
-// K-chunk for K > 1: the smallest of 4, 8, 16 that holds K, else 16; at
-// most 8 in f64 (16 doubles a lane would spill)
+// the rows kernel's K-chunk: the smallest of 4, 8, 16 that holds K, else 16
 template <typename V, typename T, int G>
-cudaError_t launch_chunk(const Args<T>& a) {
-  if (a.k <= 4) return launch_main<V, T, 4, G>(a);
-  if constexpr (sizeof(T) == sizeof(double)) {
-    return launch_main<V, T, 8, G>(a);
-  } else {
-    if (a.k <= 8) return launch_main<V, T, 8, G>(a);
-    return launch_main<V, T, 16, G>(a);
-  }
+cudaError_t launch_rows(const Args<T>& a) {
+  if (a.k <= 4) return launch_rows_main<V, T, 4, G>(a);
+  if (a.k <= 8) return launch_rows_main<V, T, 8, G>(a);
+  return launch_rows_main<V, T, 16, G>(a);
 }
 
 template <typename V, typename T>
@@ -521,20 +741,27 @@ int launch(const Args<T>& a, int group) {
   cudaError_t err;
   if (a.k == 1) {
     err = launch_spmv<V, T>(a);
-  } else {
-    switch (group) {
-      case 2:
-        err = launch_chunk<V, T, 2>(a);
-        break;
-      case 4:
-        err = launch_chunk<V, T, 4>(a);
-        break;
-      case 8:
-        err = launch_chunk<V, T, 8>(a);
-        break;
-      default:
-        err = cudaErrorInvalidValue;
+  } else if (group > 0) {
+    // the rows kernel: f32 sums only (f64 takes the columns kernel)
+    if constexpr (sizeof(T) == sizeof(double)) {
+      err = cudaErrorInvalidValue;
+    } else {
+      switch (group) {
+        case 2:
+          err = launch_rows<V, T, 2>(a);
+          break;
+        case 4:
+          err = launch_rows<V, T, 4>(a);
+          break;
+        case 8:
+          err = launch_rows<V, T, 8>(a);
+          break;
+        default:
+          err = cudaErrorInvalidValue;
+      }
     }
+  } else {
+    err = launch_cols<V, T>(a);
   }
   if (err != cudaSuccess || a.nfix == 0) return static_cast<int>(err);
   const long long threads = static_cast<long long>(a.nfix) * a.k;
@@ -548,8 +775,9 @@ int launch(const Args<T>& a, int group) {
 }  // namespace
 
 // One entry point per value type: values V, and X, Y, alpha, beta in T.
-// `group` is the lanes per row at K > 1 (2, 4 or 8); `unit` the
-// merged-path items of a share; `part` holds units + 1 (row, nonzero) pairs
+// `group` > 0 takes the rows kernel at K > 1 with that many lanes a row (2,
+// 4 or 8; f32 sums only), 0 the columns kernel; `unit` the merged-path
+// items of a share; `part` holds units + 1 (row, nonzero) pairs
 // of int32, the merge-path start of each share and the end; `fix` the nfix
 // shares whose first row began in an earlier share (-1: none, padding),
 // and `fix_lo` for each the share where that row began; `carry` room for

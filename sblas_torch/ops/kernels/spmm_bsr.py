@@ -153,3 +153,54 @@ def spmm_bsr_reference(t: dict, x: torch.Tensor, alpha: float = 1.0,
     if y is not None:
         out = out + beta * y
     return out
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """``v`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to 10
+    mantissa bits, to nearest, ties away from zero; infinities and NaNs
+    kept."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    rounded = torch.where(finite, (bits + 0x1000) & ~0x1FFF, bits)
+    return rounded.to(torch.int32).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor) -> tuple:
+    """``(hi, lo)``: ``hi`` is ``v`` rounded to TF32 and ``lo`` the rest,
+    rounded to TF32 too, so that ``hi + lo`` holds ``v`` to about 2^-22 of
+    it."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
+
+
+def spmm_bsr_emulate(t: dict, x: torch.Tensor, alpha: float = 1.0,
+                     beta: float = 0.0,
+                     y: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's arithmetic on the CPU: every block and X panel split
+    into TF32 ``hi + lo`` (:func:`tf32_split`; bf16 values are TF32 already,
+    their ``lo`` is 0), the products ``A_lo X_hi + A_hi X_lo + A_hi X_hi``
+    summed in f32 (``A_lo X_lo``, below f32's rounding, left out as the
+    kernel leaves it out), then the block-rows and the epilogue as in
+    :func:`spmm_bsr_reference`."""
+    m, n = t["shape"]
+    br, bptr, bcol = t["br"], t["bptr"], t["bcol"]
+    k = x.shape[1]
+    num_brows = bptr.numel() - 1
+    num_bcols = -(-max(n, 1) // BLOCK_COLS)
+    xp = torch.zeros((num_bcols * BLOCK_COLS, k), dtype=torch.float32)
+    xp[:n] = x.cpu()
+    panels = xp.view(num_bcols, BLOCK_COLS, k)[bcol.long().cpu()]
+    blocks = t["blocks_t"].cpu().to(torch.float32).transpose(1, 2)
+    a_hi, a_lo = tf32_split(blocks)
+    x_hi, x_lo = tf32_split(panels)
+    prod = torch.bmm(a_lo, x_hi) + torch.bmm(a_hi, x_lo) + torch.bmm(a_hi,
+                                                                      x_hi)
+    brow = torch.repeat_interleave(torch.arange(num_brows),
+                                   bptr.cpu().diff().long(),
+                                   output_size=bcol.numel())
+    out = torch.zeros((num_brows, br, k), dtype=torch.float32)
+    out.index_add_(0, brow, prod)
+    out = alpha * out.view(num_brows * br, k)[:m]
+    if y is not None:
+        out = out + beta * y.cpu()
+    return out.to(x.device)

@@ -11,17 +11,23 @@ share where that row began (:func:`fixup_starts`), all uploaded with the
 operand, and the lanes per row. :func:`spmm_csr` then computes ``Y_out =
 alpha * A @ X + beta * Y`` for row-major ``X (n, K)`` and ``Y (m, K)``,
 any K (K = 1 is SpMV): f32 for f32 or bf16 values, f64 for f64 values. On
-CUDA tensors it launches the hand-written kernel of
-``sblas_torch/csrc/spmm_csr.cu`` (see the note there); on CPU tensors it
-runs :func:`spmm_csr_reference`, the plain torch version of the same
-function. There is no fallback from one to the other.
-:func:`spmm_csr_emulate` runs the kernel's own partition on the CPU (at K
-= 1 the lanes' runs of the merged path and their segmented scan), and its
-carry fix-up, so that the tests can hold that part to the plain version.
+CUDA tensors it launches the hand-written kernels of
+``sblas_torch/csrc/spmm_csr.cu`` (see the note there: at K = 1 the merge
+SpMV; at K > 1 the columns kernel, or for f32 and bf16 values up to K = 16
+the rows kernel, :func:`rows_kernel`); on CPU tensors it runs
+:func:`spmm_csr_reference`, the plain torch version of the same function.
+There is no fallback from one to the other. :func:`spmm_csr_emulate` runs
+the kernels' own partition on the CPU (at K = 1 the lanes' runs of the
+merged path and their segmented scan, in the columns kernel its steps and
+slots, each in the kernel's order), and the carry fix-up, so that the
+tests can hold that part to the plain version.
 
-``LAUNCHES`` counts calls that launched the f32/bf16 build (its fix-up
-launch included), ``LAUNCHES_F64`` those of the f64 build, so that a run
-can show its main path went through it.
+Each call that launches counts once, under the kernel it launched (its
+fix-up launch included), so that a run can show its main path went
+through each: ``LAUNCHES`` and ``LAUNCHES_F64`` the merge SpMV at K = 1 of
+the f32/bf16 and the f64 build, ``LAUNCHES_ROWS`` the rows kernel (f32/bf16
+only), ``LAUNCHES_COLS`` and ``LAUNCHES_COLS_F64`` the columns kernel of
+each build.
 """
 
 from __future__ import annotations
@@ -36,11 +42,15 @@ from .spmv_csr import group_size, vector_dtype
 
 LAUNCHES = 0
 LAUNCHES_F64 = 0
+LAUNCHES_ROWS = 0
+LAUNCHES_COLS = 0
+LAUNCHES_COLS_F64 = 0
 
-# merged-path items (row ends + nonzeros) a warp takes at K > 1 and at
-# K = 1: the fastest share sizes of chip_smoke.py's unit_sweep on the H100
-# (PERF.md)
+# merged-path items (row ends + nonzeros) a warp takes: the rows kernel
+# and the columns kernel at K > 1, and K = 1: the fastest share sizes of
+# chip_smoke.py's unit_sweep on the H100 (PERF.md)
 UNIT = 1024
+UNIT_COLS = 512
 UNIT_SPMV = 256
 # lanes a warp's share is split over at K = 1, the carries one fix-up
 # thread adds alone, and the partial sums a lane of a fix-up warp keeps
@@ -51,7 +61,7 @@ FIX_BATCH = 8
 
 
 def _argtypes(scalar) -> list:
-    return [ctypes.c_int] * 7 + [                      # m n k G units unit nfix
+    return [ctypes.c_int] * 7 + [                 # m n k G units unit nfix
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # indptr..values
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # part fix fix_lo
         ctypes.c_void_p, ctypes.c_void_p,                    # x, y_in
@@ -141,11 +151,13 @@ def _shares(host_indptr: np.ndarray, unit: int, dev) -> dict:
 
 def prepare(t: dict, unit: int | None = None) -> dict:
     """The operand :func:`spmm_csr` takes: ``t`` checked, plus ``"group"``
-    (lanes per row at K > 1,
-    :func:`~sblas_torch.ops.kernels.spmv_csr.group_size`) and two
+    (the rows kernel's lanes a row,
+    :func:`~sblas_torch.ops.kernels.spmv_csr.group_size`) and three
     partitions (on ``t``'s device): ``"unit"``, ``"part"``, ``"fix"`` and
-    ``"fix_lo"`` for K > 1, and the same under ``"spmv"`` for K = 1. Shares
-    of ``UNIT`` and ``UNIT_SPMV`` items, or both of ``unit``."""
+    ``"fix_lo"`` for the rows kernel at K > 1, and the same under
+    ``"cols"`` for the columns kernel and under ``"spmv"`` for K = 1.
+    Shares of ``UNIT``, ``UNIT_COLS`` and ``UNIT_SPMV`` items, or all of
+    ``unit``."""
     m, _ = t["shape"]
     indptr, indices, data = t["indptr"], t["indices"], t["data"]
     dev = indptr.device
@@ -168,14 +180,32 @@ def prepare(t: dict, unit: int | None = None) -> dict:
         raise ValueError(f"unit must be >= 1, got {unit}")
     host = indptr.cpu().numpy()
     wide = _shares(host, unit or UNIT, dev)
+    cols = wide if unit else _shares(host, UNIT_COLS, dev)
     narrow = wide if unit else _shares(host, UNIT_SPMV, dev)
     return {**t, "group": group_size(m, indices.numel()), **wide,
-            "spmv": narrow}
+            "cols": cols, "spmv": narrow}
+
+
+def rows_kernel(op: dict, k: int) -> bool:
+    """Does a launch with ``k > 1`` columns take the rows kernel (lane
+    groups a row) rather than the columns kernel? f64 values take the
+    columns kernel. For f32 and bf16 values an operand may name the kernel
+    (``"design": "rows"`` or ``"cols"``), as ``chip_smoke.py`` does to time
+    both; else the rule: the rows kernel up to K = 16, the fastest there on
+    the H100 (PERF.md)."""
+    if op["data"].dtype == torch.float64:
+        return False
+    design = op.get("design")
+    if design is not None:
+        return design == "rows"
+    return k <= 16
 
 
 def shares(op: dict, k: int) -> dict:
     """The partition a launch with ``k`` columns takes."""
-    return op["spmv"] if k == 1 else op
+    if k == 1:
+        return op["spmv"]
+    return op if rows_kernel(op, k) else op["cols"]
 
 
 def _check_dense(name: str, v: torch.Tensor, rows: int, k: int | None,
@@ -201,7 +231,8 @@ def spmm_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
     The kernel launches on the current stream of the tensors' device, which
     must be the current device.
     """
-    global LAUNCHES, LAUNCHES_F64
+    global LAUNCHES, LAUNCHES_F64, LAUNCHES_ROWS, LAUNCHES_COLS, \
+        LAUNCHES_COLS_F64
     m, n = op["shape"]
     dev = op["indptr"].device
     vt = vector_dtype(op["data"].dtype)
@@ -222,7 +253,8 @@ def spmm_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
     nfix = sh["fix"].numel()
     carry = torch.empty((units, k), dtype=vt, device=dev)
     fn, err = entry(*_SYMBOLS[op["data"].dtype])
-    rc = fn(m, n, k, op["group"], units, sh["unit"], nfix,
+    rows = k > 1 and rows_kernel(op, k)
+    rc = fn(m, n, k, op["group"] if rows else 0, units, sh["unit"], nfix,
             op["indptr"].data_ptr(), op["indices"].data_ptr(),
             op["data"].data_ptr(), sh["part"].data_ptr(),
             sh["fix"].data_ptr(), sh["fix_lo"].data_ptr(), x.data_ptr(),
@@ -231,10 +263,18 @@ def spmm_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
     if rc != 0:
         raise RuntimeError(f"spmm_csr launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")
-    if vt == torch.float64:
-        LAUNCHES_F64 += 1
+    f64 = vt == torch.float64
+    if k == 1:
+        if f64:
+            LAUNCHES_F64 += 1
+        else:
+            LAUNCHES += 1
+    elif rows:
+        LAUNCHES_ROWS += 1
+    elif f64:
+        LAUNCHES_COLS_F64 += 1
     else:
-        LAUNCHES += 1
+        LAUNCHES_COLS += 1
     return out
 
 
@@ -339,44 +379,130 @@ def _emulate_runs(op: dict, prods: np.ndarray, dt) -> tuple:
     return sums, raw, carry
 
 
+def slot_lanes(k: int) -> tuple:
+    """``(W, CPL)`` of a launch with ``k > 1`` columns: the lanes a slot
+    (the power of two that holds K, 2 to 32) and the columns a lane (1, or
+    2 or 4 beyond 32), as ``launch_cols`` in ``csrc/spmm_csr.cu`` picks
+    them."""
+    for w in (2, 4, 8, 16, 32):
+        if k <= w:
+            return w, 1
+    return WARP, 2 if k <= 64 else 4
+
+
+def _emulate_steps(op: dict, x: torch.Tensor, dt) -> tuple:
+    """K > 1: each share's warp walks its nonzeros ``32 / W`` at a time, as
+    ``spmm_merge_kernel`` does. Slot ``g`` of a step takes the step's
+    ``g``-th nonzero, so inside a share a row's nonzeros at offsets ``i``
+    (from the share's first nonzero) with ``i % (32 / W) == g`` add up in
+    slot ``g`` in order (one fused multiply-add each; here the product and
+    the sum are formed in f64 and rounded once for f32, and rounded twice in
+    f64), and the row's slots meet in the kernel's shuffle tree. Returns
+    the raw row sums, the mask of rows written raw, and each share's
+    carry."""
+    m, _ = op["shape"]
+    k = x.shape[1]
+    part = shares(op, k)["part"].cpu().numpy().astype(np.int64)
+    indptr = op["indptr"].cpu().numpy().astype(np.int64)
+    cols = op["indices"].cpu().numpy().astype(np.int64)
+    vt = torch.float64 if dt is np.float64 else torch.float32
+    vals = op["data"].cpu().to(vt).numpy()
+    xs = x.cpu().numpy()
+    slots = WARP // slot_lanes(k)[0]
+    units = len(part) - 1
+    nnz = len(cols)
+    j = np.arange(nnz)
+    u = np.searchsorted(part[:, 1], j, side="right") - 1
+    j0 = part[u, 1]
+    row = np.repeat(np.arange(m), np.diff(indptr))
+    # a (share, row) segment; its slots; each nonzero's turn in its slot
+    new = np.ones(nnz, dtype=bool)
+    new[1:] = (u[1:] != u[:-1]) | (row[1:] != row[:-1])
+    seg = np.cumsum(new) - 1
+    nseg = int(seg[-1]) + 1 if nnz else 0
+    rel = j - j0
+    start = np.maximum(indptr[row], j0) - j0
+    slot = rel % slots
+    turn = (rel - start - (slot - start) % slots) // slots
+    acc = np.zeros((nseg, slots, k), dtype=dt)
+    order = np.argsort(turn, kind="stable")
+    bounds = np.searchsorted(turn[order], np.arange(turn.max(initial=-1) + 2))
+    for t in range(len(bounds) - 1):
+        sel = order[bounds[t]:bounds[t + 1]]
+        a = acc[seg[sel], slot[sel]].astype(np.float64)
+        prod = vals[sel, None].astype(np.float64) * xs[cols[sel]]
+        acc[seg[sel], slot[sel]] = (a + prod).astype(dt)
+    while acc.shape[1] > 1:                 # the shuffle tree over slots
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    sums = acc[:, 0]
+    out = np.zeros((m, k), dtype=dt)
+    carry = np.zeros((units, k), dtype=dt)
+    firsts = np.flatnonzero(new)
+    su, sr = u[firsts], row[firsts]
+    cut = sr == part[su + 1, 0]             # the row the share ends inside
+    carry[su[cut]] = sums[cut]
+    out[sr[~cut]] = sums[~cut]
+    raw = np.zeros(m, dtype=bool)
+    r0, r1 = part[:-1, 0], part[1:, 0]
+    first_cut = (r0 < r1) & (indptr[r0] < part[:-1, 1])
+    raw[r0[first_cut]] = True
+    return out, raw, carry
+
+
+def _emulate_rows(op: dict, x: torch.Tensor) -> tuple:
+    """K > 1, the rows kernel: each share sums the part of each row it
+    holds (the kernel's lane sums and shuffle tree are not followed).
+    Returns the raw row sums, the mask of rows written raw, and each
+    share's carry, as tensors."""
+    m, _ = op["shape"]
+    k = x.shape[1]
+    part = op["part"].cpu().tolist()
+    indptr = op["indptr"].cpu().tolist()
+    _, prods = _products(op, x, x.dtype)
+    prods = prods.cpu()
+    carry = torch.zeros((len(part) - 1, k), dtype=x.dtype)
+    out = torch.zeros((m, k), dtype=x.dtype)
+    raw = torch.zeros(m, dtype=torch.bool)
+    for u, ((r0, j0), (r1, j1)) in enumerate(zip(part, part[1:])):
+        first_cut = indptr[r0] < j0
+        for r in range(r0, r1 + (1 if r1 < m else 0)):
+            s = prods[max(indptr[r], j0):min(indptr[r + 1], j1)].sum(0)
+            if r == r1:
+                carry[u] = s
+            else:
+                out[r] = s
+                raw[r] = r == r0 and first_cut
+    return out, raw, carry
+
+
 def spmm_csr_emulate(op: dict, x: torch.Tensor, alpha: float = 1.0,
                      beta: float = 0.0,
                      y: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's partition on the CPU. At K = 1, each share's 32 lanes
     walk their runs of the merged path and meet in the segmented scan
-    (:func:`_emulate_runs`); at K > 1 each share sums the rows it ends.
+    (:func:`_emulate_runs`); at K > 1 each share's slots take its nonzeros
+    in steps in the columns kernel (:func:`_emulate_steps`), and each share
+    sums its part of each row in the rows kernel (:func:`_emulate_rows`).
     Either way the row a share ends inside goes to its carry, and a row it
     begins inside stays raw until the fix-up adds the carries of the shares
     from ``fix_lo`` to it as ``spmm_csr_fixup`` does: up to ``SHORT_FIX``
     in order; more, lane ``l`` of 32 takes every 32nd into ``FIX_BATCH``
     sums in turn, a tree adds those, and a tree adds the lanes."""
-    m, _ = op["shape"]
     k = x.shape[1]
     sh = shares(op, k)
     part = sh["part"].cpu().tolist()
-    indptr = op["indptr"].cpu().tolist()
     vt = x.dtype
-    _, prods = _products(op, x, vt)
-    prods = prods.cpu()
+    dt = np.float64 if vt == torch.float64 else np.float32
     if k == 1:
-        dt = np.float64 if vt == torch.float64 else np.float32
-        sums, raw_np, carry_np = _emulate_runs(op, prods[:, 0].numpy(), dt)
-        out = torch.from_numpy(sums)[:, None]
-        raw = torch.from_numpy(raw_np)
-        carry = torch.from_numpy(carry_np)[:, None]
+        _, prods = _products(op, x, vt)
+        sums, raw, carry = _emulate_runs(op, prods.cpu()[:, 0].numpy(), dt)
+        out, raw, carry = (torch.from_numpy(sums)[:, None],
+                           torch.from_numpy(raw),
+                           torch.from_numpy(carry)[:, None])
+    elif rows_kernel(op, k):
+        out, raw, carry = _emulate_rows(op, x)
     else:
-        carry = torch.zeros((len(part) - 1, k), dtype=vt)
-        out = torch.zeros((m, k), dtype=vt)
-        raw = torch.zeros(m, dtype=torch.bool)
-        for u, ((r0, j0), (r1, j1)) in enumerate(zip(part, part[1:])):
-            first_cut = indptr[r0] < j0
-            for r in range(r0, r1 + (1 if r1 < m else 0)):
-                s = prods[max(indptr[r], j0):min(indptr[r + 1], j1)].sum(0)
-                if r == r1:
-                    carry[u] = s
-                else:
-                    out[r] = s
-                    raw[r] = r == r0 and first_cut
+        out, raw, carry = map(torch.from_numpy, _emulate_steps(op, x, dt))
     yc = None if y is None else y.cpu()
     done = _epilogue(out, alpha, beta, yc)
     for b, lo in zip(sh["fix"].tolist(), sh["fix_lo"].tolist()):

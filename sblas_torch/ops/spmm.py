@@ -78,12 +78,16 @@ ROUTES = ("block", "merge", "pallas", "pseg", "spmv_passes", "ell",
 # every route of the JAX package has its counterpart here
 NOT_PORTED = ()
 K_HINT = 8
-# what one byte of the X rows the nnz-balanced kernel gathers (K floats a
-# nonzero) costs, in streamed bytes. Its time on the FEM matrices, less its
-# stream, X and Y at the STREAM rate, paid 0.84-1.89 of the gathered bytes
-# (H100, chip_smoke.py's x_gather_fit, PERF.md). At K = 8 any value in
-# 0.97-1.12 sends cant to it (faster than the block route there) and
-# consph and pdb1HYS to the block route (faster there): 1.0
+# what one byte of the X rows the nnz-balanced kernels gather (K floats a
+# nonzero) costs, in streamed bytes. Their time on the FEM matrices, the
+# FEM band and the graphs, less the CSR stream, X and Y at the STREAM rate,
+# paid 0.81-1.01 of the gathered bytes, but 1.75 on consph at K = 8
+# (the rows kernel to K = 16, the columns kernel at 32; H100 80GB HBM3 at
+# 700 W, chip_smoke.py's x_gather_fit, PERF.md). Beside the tensor-core
+# block kernel, any value in 0.97-1.11 sends cant at K = 8 to merge and
+# consph (K = 8, 32) and cant and pdb1HYS at K = 32 to block, each the
+# faster there; pdb1HYS at K = 8 (merge 48.5 us, block 54.3) would need
+# less than 0.78, which sends consph at K = 8 to merge, 35% slower: 1.0
 X_GATHER = 1.0
 # rows x width x K elements of X one ELL chunk gathers at most
 _ELL_CHUNK = 1 << 22

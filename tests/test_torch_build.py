@@ -152,3 +152,21 @@ def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
     _no_nvcc(monkeypatch, tmp_path)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         native.build(native.SRC, tmp_path / "out")
+
+
+def test_every_compiled_source_is_package_data():
+    # an installed sblas_torch builds its kernels (csrc/*.cu, *.cuh) and
+    # its host factorizations (hostsrc/*.cpp) at first use: each file the
+    # two builders compile must match a package-data glob
+    import tomllib
+
+    root = Path(__file__).resolve().parents[1]
+    conf = tomllib.loads((root / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["sblas_torch"]
+    pkg = native.SRC.parents[1]
+    compiled = [*_build.sources(), *_build.CSRC.glob("*.cuh"), native.SRC,
+                *native.SRC.parent.glob("*.cpp")]
+    assert native.SRC in compiled and _build.sources()
+    for src in compiled:
+        rel = src.relative_to(pkg)
+        assert any(rel.match(g) for g in globs), f"{rel} is not packaged"

@@ -146,6 +146,14 @@ def test_spmm_main_path_goes_through_the_block_kernel(cuda):
                    spmm_golden(a, x, 2.5, -0.5, y0)) < 2e-5
 
 
+def _csr_launches(f64=False):
+    """Launches so far of the nnz-balanced kernel's f32/bf16 (or f64)
+    build, each counted under the one kernel it launched."""
+    if f64:
+        return ckern.LAUNCHES_F64 + ckern.LAUNCHES_COLS_F64
+    return ckern.LAUNCHES + ckern.LAUNCHES_ROWS + ckern.LAUNCHES_COLS
+
+
 def _long_rows():
     # rows of 20,000+ nonzeros, many empty rows (the last ones too), m != n
     rng = np.random.default_rng(11)
@@ -183,10 +191,10 @@ def test_spmm_csr_vs_plain_on_card(cuda, name, vdt, unit):
         y = torch.from_numpy(np.random.default_rng(k + 1).standard_normal(
             (m, k)).astype(np.float32)).to(cuda)
         for args in ((2.5, -0.5, y), (1.0, 0.0, None)):
-            before = ckern.LAUNCHES
+            before = _csr_launches()
             got = ckern.spmm_csr(op, x, *args)
             torch.cuda.synchronize()
-            assert ckern.LAUNCHES == before + 1
+            assert _csr_launches() == before + 1
             want = ckern.spmm_csr_reference(op, x, *args)
             assert got.shape == (m, k) and torch.isfinite(got).all()
             assert rel_err(got.cpu().numpy(),
@@ -210,11 +218,11 @@ def test_f64_spmm_csr_vs_plain_on_card(cuda, name, unit):
         x = torch.from_numpy(rng.standard_normal((n, k))).to(cuda)
         y = torch.from_numpy(rng.standard_normal((m, k))).to(cuda)
         for args in ((1 / 3, -0.5, y), (1.0, 0.0, None)):
-            before, before32 = ckern.LAUNCHES_F64, ckern.LAUNCHES
+            before, before32 = _csr_launches(True), _csr_launches()
             got = ckern.spmm_csr(op, x, *args)
             torch.cuda.synchronize()
-            assert ckern.LAUNCHES_F64 == before + 1
-            assert ckern.LAUNCHES == before32
+            assert _csr_launches(True) == before + 1
+            assert _csr_launches() == before32
             assert got.dtype == torch.float64 and got.shape == (m, k)
             want = ckern.spmm_csr_reference(op, x, *args)
             assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= \
@@ -223,6 +231,102 @@ def test_f64_spmm_csr_vs_plain_on_card(cuda, name, unit):
             assert rel_err(got.cpu().numpy(), spmm_golden(
                 a, x.cpu().numpy(), args[0], args[1], yy)) < 1e-13
             assert torch.equal(got, ckern.spmm_csr(op, x, *args))
+
+
+KS = (2, 3, 8, 16, 32, 33, 64)
+
+
+def _card_pair(n, m, k, dtype, cuda):
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((n, k)).astype(dtype)
+    y = rng.standard_normal((m, k)).astype(dtype)
+    return torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["cols", "rows"])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+@pytest.mark.parametrize("name", ["long_rows", "powerlaw", "empty_rows"])
+def test_merge_kernels_at_every_k_on_card(cuda, name, vdt, design):
+    # both K > 1 kernels of csrc/spmm_csr.cu (f64 takes the columns kernel
+    # whatever the operand names) at every K, shares of the rule's size and
+    # of 5 items; the same bits on a second call
+    a = CSR_MATRICES[name]()
+    f64 = vdt == torch.float64
+    if f64:
+        a = a.astype(np.float64)
+    m, n = a.shape
+    raw = to_device(a, cuda, None if f64 else vdt)
+    for op in (ckern.prepare(raw), ckern.prepare(raw, 5)):
+        op = {**op, "design": design}
+        for k in KS:
+            cols = not ckern.rows_kernel(op, k)
+            assert cols == (f64 or design == "cols")
+            x, y = _card_pair(n, m, k, np.float64 if f64 else np.float32,
+                              cuda)
+            for args in (((1 / 3) if f64 else 2.5, -0.5, y),
+                         (1.0, 0.0, None)):
+                counter = ("LAUNCHES_ROWS" if not cols else
+                           "LAUNCHES_COLS_F64" if f64 else "LAUNCHES_COLS")
+                before = _csr_launches(f64)
+                before_k = getattr(ckern, counter)
+                got = ckern.spmm_csr(op, x, *args)
+                torch.cuda.synchronize()
+                assert getattr(ckern, counter) == before_k + 1
+                assert _csr_launches(f64) == before + 1
+                want = ckern.spmm_csr_reference(op, x, *args)
+                assert got.shape == (m, k) and torch.isfinite(got).all()
+                assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= (
+                    KERNEL_TOL_F64 if f64 else KERNEL_TOL)
+                assert torch.equal(got, ckern.spmm_csr(op, x, *args))
+        if design == "cols":
+            # past 128 columns: the grid's second chunk
+            x, _ = _card_pair(n, m, 200, np.float64 if f64 else np.float32,
+                              cuda)
+            got = ckern.spmm_csr(op, x)
+            assert rel_err(got.cpu().numpy(), ckern.spmm_csr_reference(
+                op, x).cpu().numpy()) <= (KERNEL_TOL_F64 if f64
+                                          else KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("br", [128, 64])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+def test_block_tensor_cores_at_every_k_on_card(cuda, vdt, br):
+    # the 3xTF32 block kernel at every K (one CTA a block-row and chunk of
+    # up to 32 columns), against its plain version and scipy; the same bits
+    # on a second call
+    for name in ("cant_0.05", "empty_block_rows", "m!=n"):
+        a = BLOCK_MATRICES[name]()
+        op = bkern.prepare(bkern.bsr_to_device(pack_bsr(a, br=br), cuda,
+                                               vdt))
+        m, n = a.shape
+        for k in KS:
+            x, y = _card_pair(n, m, k, np.float32, cuda)
+            got = bkern.spmm_bsr(op, x, 2.5, -0.5, y)
+            want = bkern.spmm_bsr_reference(op, x, 2.5, -0.5, y)
+            assert rel_err(got.cpu().numpy(),
+                           want.cpu().numpy()) <= KERNEL_TOL
+            assert torch.equal(got, bkern.spmm_bsr(op, x, 2.5, -0.5, y))
+            golden = spmm_golden(a, x.cpu().numpy(), 2.5, -0.5,
+                                 y.cpu().numpy())
+            assert rel_err(got.cpu().numpy(), golden) < (
+                2e-2 if vdt == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_do_not_spill(cuda):
+    # the columns kernel and the tensor-core block kernel, every
+    # instantiation, from the compiler's own report
+    from sblas_torch.ops.kernels import _build
+
+    lib = _build.build()
+    report = _build.ptxas_report(lib.with_suffix(".log").read_text())
+    new = [r for r in report if "spmm_merge_kernel" in r["kernel"]
+           or "spmm_bsr_tc" in r["kernel"]]
+    assert len(new) == 3 * 7 + 2 * 2 * 3
+    assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in new), new
 
 
 @pytest.mark.cuda
@@ -243,12 +347,12 @@ def test_spmm_csr_permutations_on_card(cuda, vdt):
         y = torch.from_numpy(np.random.default_rng(k + 1).standard_normal(
             (m, k)).astype(np.float32)).to(cuda)
         for args in ((2.5, -0.5, y), (1.0, 0.0, None)):
-            before = ckern.LAUNCHES
+            before = _csr_launches()
             got = plan(x, *args)
             yp = None if args[2] is None else args[2][rows]
             got_p = plan.apply_permuted(x[cols], args[0], args[1], yp)
             torch.cuda.synchronize()
-            assert ckern.LAUNCHES == before + 2
+            assert _csr_launches() == before + 2
             want = ckern.spmm_csr_reference(plan._op, x[cols], args[0],
                                             args[1], yp)
             assert rel_err(got_p.cpu().numpy(),
@@ -266,14 +370,16 @@ def test_scattered_main_paths_go_through_the_kernel(cuda):
     rng = np.random.default_rng(8)
     x = rng.standard_normal((a.shape[1], 8)).astype(np.float32)
     y0 = rng.standard_normal((a.shape[0], 8)).astype(np.float32)
-    before = ckern.LAUNCHES
+    before = ckern.LAUNCHES, ckern.LAUNCHES_ROWS
     out = sblas_torch.spmv(a, x[:, 0], 2.5, -0.5, y0[:, 0], method="pseg",
                            device=cuda)
     outm = sblas_torch.spmm(a, x, 2.5, -0.5, y0, method="pseg", device=cuda)
     outp = sblas_torch.spmm(a, x, method="pallas", device=cuda)
     outa = sblas_torch.spmv(a, x[:, 0], device=cuda)     # auto: merge
     torch.cuda.synchronize()
-    assert ckern.LAUNCHES == before + 4
+    # two SpMVs (K = 1) and two SpMMs at K = 8 (the rows kernel)
+    assert (ckern.LAUNCHES, ckern.LAUNCHES_ROWS) == (before[0] + 2,
+                                                      before[1] + 2)
     assert rel_err(out.cpu().numpy(),
                    spmv_golden(a, x[:, 0], 2.5, -0.5, y0[:, 0])) < 2e-5
     assert rel_err(outa.cpu().numpy(), spmv_golden(a, x[:, 0])) < 2e-5
