@@ -36,6 +36,13 @@ before it and read just after:
   1M-row Poisson grid to convergence, IC(0)-CG, ILU(0)-BiCGSTAB and
   ILU(0)-GMRES(30) in f64 to convergence on 256 x 256 grids, and CG in f32
   on the 1M-row grid;
+- the port's own entry points: the CLI (``sblas_torch.cli.main`` in this
+  process: ``spmv`` on cant, ``spmm`` on cant at K = 32, ``sptrsv`` and
+  ``sptrsm`` at K = 8 on ``chol:poisson:120``, ``solve`` IC(0)-CG in f64
+  on ``poisson:256`` to 1e-8, ``stream``), the examples
+  (``sblas_torch.examples``: each ``main()``, then checked as the JAX
+  package's ``tests/test_examples.py`` checks its own) and the suite
+  (``sblas_torch.benchmarks.run_suite --quick --case cant``);
 
 checks every result against scipy, and fails where the route the rule
 picked launched no kernel (in f64: no f64 build). It times each kernel
@@ -49,16 +56,19 @@ per level and cuSPARSE's ``triangular_solve``, the block kernel at K = 8
 and 32 at both block heights, the nnz-balanced kernel's rows and columns
 kernels (also at K = 16, where the rule switches) and the columns kernel
 in column-chunk-major order (one launch a half of X's columns) on both
-graphs at K = 8 and 32, and times the solvers: ms
-per iteration, split into the SpMV, the two triangular solves and the rest
-(IC(0)-CG, ILU(0)-BiCGSTAB and ILU(0)-GMRES(30) for 30 iterations on the
-1M-row grids), with the true residual. The solve kernel takes its tickets
-level by level, small levels grouped; every factor's solve is also held
-bit for bit to, and timed beside, the same kernel in plain level order and
-in row order (its earlier ticket orders), the 1M-row IC(0)/ILU(0) factors
-included. The nnz-balanced kernel is timed at
-every share size it takes (``unit_sweep``, K = 1, 8 and 32). It imports
-only the port.
+graphs at K = 8 and 32, and times IC(0)-CG for 30 iterations on the
+1M-row grid: ms per iteration, split into the SpMV, the two triangular
+solves and the rest, with the true residual. The solve kernel takes its
+tickets level by level, small levels grouped; every factor's solve, the
+1M-row IC(0) and ILU(0) factors' among them, is held bit for bit to the
+same kernel in plain level order and in row order (its earlier ticket
+orders) and with small levels grouped up to 512 .. 4,096 rows; the
+nnz-balanced kernel is held to its plain version at every share size it
+takes; ILU(0)-BiCGSTAB and ILU(0)-GMRES(30) on the 1M-row grid report the
+true residual. The suite (``python -m sblas_torch.benchmarks.run_suite``)
+times what this run only checks: those orders, the share and ticket group
+sizes, the other solvers, the factorizations and the large cases. It
+imports only the port.
 
 Output: one JSON line per phase; a ``{"kernels": [...]}`` line; the card's
 ``name, power.limit`` as nvidia-smi prints it; and last
@@ -68,9 +78,12 @@ exits non-zero; so it does without a CUDA device, where it prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -95,9 +108,14 @@ def main() -> int:
     import sblas_torch
     from sblas_torch import datasets
     from sblas_torch import solvers
-    from sblas_torch.bench_lib import (EPS, SOLVE_TOL, bench_solver,
-                                       bench_spmm, bench_spmv, bench_sptrsm,
-                                       bench_sptrsv)
+    from sblas_torch import cli
+    from sblas_torch.bench_lib import (COUNTERS, EPS, SOLVE_TOL,
+                                       bench_solver, bench_spmm, bench_spmv,
+                                       bench_sptrsm, bench_sptrsv)
+    from sblas_torch.benchmarks import run_suite
+    from sblas_torch.examples import cg as ex_cg
+    from sblas_torch.examples import convection_ilu as ex_ilu
+    from sblas_torch.examples import pagerank as ex_pr
     from sblas_torch.golden import (KERNEL_TOL, KERNEL_TOL_F64, rel_err,
                                     spmm_golden, spmv_golden, sptrsm_golden,
                                     sptrsv_golden, value_tol)
@@ -109,8 +127,8 @@ def main() -> int:
     from sblas_torch.ops.kernels import spmv_csr as kern
     from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmm import _get_plan as spmm_plan
-    from sblas_torch.ops.spmv import (MERGE_SHARE_NS, _get_plan,
-                                      csr_stream_bytes)
+    from sblas_torch.native import BUILD_DIR
+    from sblas_torch.ops.spmv import _get_plan, csr_stream_bytes
     from sblas_torch.ops.sptrsv import get_plan as sptrsv_plan
     from sblas_torch.retile_bsr import pack_bsr
     from sblas_torch.utils.backend import probe
@@ -128,16 +146,7 @@ def main() -> int:
     f64_tol = 1e-13
     t_start = time.perf_counter()
     # each kernel build's launch count: (wrapper module, counter)
-    kernels = {"spmv_csr": (kern, "LAUNCHES"),
-               "spmv_csr_f64": (kern, "LAUNCHES_F64"),
-               "spmm_bsr": (bkern, "LAUNCHES"),
-               "spmm_csr": (ckern, "LAUNCHES"),
-               "spmm_csr_f64": (ckern, "LAUNCHES_F64"),
-               "spmm_csr_rows": (ckern, "LAUNCHES_ROWS"),
-               "spmm_csr_cols": (ckern, "LAUNCHES_COLS"),
-               "spmm_csr_cols_f64": (ckern, "LAUNCHES_COLS_F64"),
-               "sptrsv_csr": (skern, "LAUNCHES"),
-               "sptrsv_csr_f64": (skern, "LAUNCHES_F64")}
+    kernels = dict(COUNTERS)
 
     def launched(kname):
         mod, attr = kernels[kname]
@@ -159,50 +168,69 @@ def main() -> int:
         raise RuntimeError("nvidia-smi gave no name, power.limit")
     card = info["nvidia_smi"].splitlines()[0]
 
-    # 2. build ----------------------------------------------------------
+    # 2. build, and meanwhile generate the matrices: nvcc runs in processes
+    # of its own and the generators in threads (numpy releases the GIL on
+    # its large arrays), so the host's cores share the wait. The matrices:
+    # the FEM suite; the 1M-row, 112M-nnz FEM band; the web graphs of
+    # BASELINE.json config 5 at the scales benchmarks/run_suite.py runs
+    # them; the triangular factors of config 3 as it builds them, and the
+    # nested-dissection Cholesky factor scaled up to 1M rows and 50M
+    # nonzeros. Both factor generators compute in f64 and cast at the end,
+    # so the f32 factors are the f64 ones cast: the same bits as generating
+    # them in f32. A job's seconds are its own, run beside the others ----
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t0
+
+    def chol_nd(grid):
+        return datasets.cholesky_factor(datasets.poisson2d_nd(
+            grid, dtype=np.float64), dtype=np.float64)
+
     t0 = time.perf_counter()
-    lib = _build.build()
+    graph_scales = {"uk-2002@0.05": 0.05, "twitter7@0.02": 0.02}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = {"build": pool.submit(timed, _build.build),
+                "fem": pool.submit(timed, datasets.random_csr, 1_000_000,
+                                   1_000_000, 112, bandwidth=1500, seed=7,
+                                   dtype=np.float32)}
+        for name in ("twitter7@0.02", "uk-2002@0.05"):
+            jobs[name] = pool.submit(timed, datasets.emulate,
+                                     name.split("@")[0],
+                                     scale=graph_scales[name],
+                                     dtype=np.float32)
+        for grid in (1000, 120, 60):
+            jobs[f"chol-nd-poisson2d-{grid}"] = pool.submit(timed, chol_nd,
+                                                            grid)
+        jobs["band-parallel"] = pool.submit(
+            timed, datasets.lower_triangular, 62451, 30, bandwidth=4000,
+            seed=1, dtype=np.float64)
+        for name in ("cant", "consph", "pdb1HYS"):
+            jobs[name] = pool.submit(timed, datasets.emulate, name,
+                                     dtype=np.float32)
+        # a job that raised raises here
+        done = {name: job.result() for name, job in jobs.items()}
+    lib, build_s = done.pop("build")
     _build.load()
     log = lib.with_suffix(".log")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": build_s,
+          "with_generation_s": time.perf_counter() - t0,
           "library": lib.name,
           "ptxas": _build.ptxas_report(log.read_text() if log.exists()
                                        else "")})
 
     # 3. the csr kernel vs its plain version on the card ----------------
-    t0 = time.perf_counter()
-    cant = datasets.emulate("cant", dtype=np.float32)
-    consph = datasets.emulate("consph", dtype=np.float32)
-    pdb = datasets.emulate("pdb1HYS", dtype=np.float32)
-    fem_suite = {"cant": cant, "consph": consph, "pdb1HYS": pdb}
-    suite_gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fem = datasets.random_csr(1_000_000, 1_000_000, 112, bandwidth=1500,
-                              seed=7, dtype=np.float32)
-    fem_gen_s = time.perf_counter() - t0
-    # the web graphs of BASELINE.json config 5, at the scales
-    # benchmarks/run_suite.py runs them
-    graphs, graph_gen_s = {}, {}
-    for name, scale in (("uk-2002@0.05", 0.05), ("twitter7@0.02", 0.02)):
-        t0 = time.perf_counter()
-        graphs[name] = datasets.emulate(name.split("@")[0], scale=scale,
-                                        dtype=np.float32)
-        graph_gen_s[name] = time.perf_counter() - t0
-    # the triangular factors of BASELINE.json config 3, as
-    # benchmarks/run_suite.py builds them, and the nested-dissection
-    # Cholesky factor scaled up to 1M rows and 50M nonzeros. Both generators
-    # compute in f64 and cast at the end, so the f32 factors are the f64
-    # ones cast: the same bits as generating them in f32
-    factors64, factor_gen_s = {}, {}
-    t0 = time.perf_counter()
-    factors64["band-parallel"] = datasets.lower_triangular(
-        62451, 30, bandwidth=4000, seed=1, dtype=np.float64)
-    factor_gen_s["band-parallel"] = time.perf_counter() - t0
-    for grid in (60, 120, 1000):
-        t0 = time.perf_counter()
-        factors64[f"chol-nd-poisson2d-{grid}"] = datasets.cholesky_factor(
-            datasets.poisson2d_nd(grid, dtype=np.float64), dtype=np.float64)
-        factor_gen_s[f"chol-nd-poisson2d-{grid}"] = time.perf_counter() - t0
+    fem_suite = {name: done[name][0] for name in ("cant", "consph",
+                                                  "pdb1HYS")}
+    cant = fem_suite["cant"]
+    suite_gen_s = sum(done[name][1] for name in fem_suite)
+    fem, fem_gen_s = done["fem"]
+    graphs = {name: done[name][0] for name in graph_scales}
+    graph_gen_s = {name: done[name][1] for name in graph_scales}
+    factor_names = ("band-parallel", "chol-nd-poisson2d-60",
+                    "chol-nd-poisson2d-120", "chol-nd-poisson2d-1000")
+    factors64 = {name: done[name][0] for name in factor_names}
+    factor_gen_s = {name: done[name][1] for name in factor_names}
+    del done, jobs
     factors = {name: l.astype(np.float32) for name, l in factors64.items()}
     # the f64 matrices of the f64 paths: the f32 ones cast (exact)
     cant64, fem64 = cant.astype(np.float64), fem.astype(np.float64)
@@ -439,6 +467,52 @@ def main() -> int:
               "repeats_bit_equal": 20, "row_order_bit_equal": True,
               "level_order_bit_equal": True,
               "seconds": time.perf_counter() - t0})
+
+    # 4d. the nnz-balanced kernel at every share size it takes (merged-path
+    # items; the suite's ``sweeps`` stage times each) on both graphs at
+    # K = 1, 8 (the rows kernel) and 32 (the columns kernel) and on
+    # banded(300,5) at K = 1, against its plain version; the solve kernel
+    # with small levels grouped up to 512 .. 4,096 rows, the same bits as
+    # with the rule's GROUP_ROWS ------------------------------------------
+    t0 = time.perf_counter()
+    unit_errs = {}
+    for name, a, ks, units in (
+            *((name, a, (1, 8, 32), (256, 384, 512, 1024, 2048))
+              for name, a in graphs.items()),
+            ("banded(300,5)", datasets.banded(300, 5), (1,),
+             (256, 512, 1024, 2048))):
+        t = sblas_torch.to_device(a, dev)
+        for k in ks:
+            x0 = on_card(vec(a.shape[1], k))
+            for unit in units:
+                op = ckern.prepare(t, unit)
+                label = f"{name} unit={unit} K={k}"
+                unit_errs[label] = check_plain(
+                    csr_kname(op, k), label, ckern.spmm_csr(op, x0, 2.5),
+                    ckern.spmm_csr_reference(op, x0, 2.5))
+                del op
+            del x0
+        del t
+    group_bits = {}
+    for name, k in (("band-parallel", 1), ("band-parallel", 8),
+                    ("chol-nd-poisson2d-120", 1),
+                    ("chol-nd-poisson2d-1000", 1)):
+        op = sptrsv_plan(factors[name])._op
+        b0 = on_card(vec(op["shape"][0], k))
+        got = skern.sptrsv_csr(op, b0)
+        for g in (512, 1024, 2048, 4096):
+            o = {**op, "perm": on_card(skern.ticket_order(
+                op["levels"], True, g))}
+            if not torch.equal(skern.sptrsv_csr(o, b0), got):
+                raise RuntimeError(f"{name} K={k} group {g}: other bits")
+        group_bits[f"{name} K={k}"] = [512, 1024, 2048, 4096]
+        del op, o, b0, got
+    emit({"phase": "share_and_group_sizes", "tol": KERNEL_TOL,
+          "unit_rel_err": unit_errs, "group_bit_equal": group_bits,
+          "rule_unit": ckern.UNIT, "rule_unit_cols": ckern.UNIT_COLS,
+          "rule_unit_spmv": ckern.UNIT_SPMV,
+          "rule_group_rows": skern.GROUP_ROWS,
+          "seconds": time.perf_counter() - t0})
 
     # 5. the main paths, through the user's entry points: the route is the
     # rule's pick, and each call must launch that route's kernel ---------
@@ -790,6 +864,159 @@ def main() -> int:
                 for name in kernels}
     del m_ic, m_ilu
 
+    # 5f. the port's own entry points, each window with the counts reset:
+    # the CLI (sblas_torch.cli.main, in this process; every record checked
+    # and the kernel build of the route its rule picked launched), the
+    # examples (each main() on the card, then checked as
+    # tests/test_examples.py checks the JAX package's) and the suite
+    # (run_suite --quick --case cant) -----------------------------------------
+    def quiet(fn, *args, **kw):
+        """``fn``'s result and what it printed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+        return out, buf.getvalue()
+
+    def route_of(method, k, f64):
+        """The kernel build a route launches for ``k`` columns."""
+        if method in ("merge", "pseg"):
+            vt = torch.float64 if f64 else torch.float32
+            return csr_kname({"data": torch.empty(0, dtype=vt)}, k)
+        return by_route[method] + ("_f64" if f64 else "")
+
+    solve_tol = SOLVE_TOL[np.dtype(np.float32)]
+    cli_calls = [(["spmv", "--matrix", "cant"], f32_tol),
+                 (["spmm", "--matrix", "cant", "--k", "32"], f32_tol),
+                 (["sptrsv", "--matrix", "chol:poisson:120"], solve_tol),
+                 (["sptrsm", "--matrix", "chol:poisson:120", "--k", "8"],
+                  solve_tol),
+                 (["solve", "--matrix", "poisson:256", "--dtype", "f64",
+                   "--precond", "ichol", "--tol", "1e-8"], 2e-8),
+                 (["stream"], None)]
+    reset()
+    res, t0 = {}, time.perf_counter()
+    for argv, tol in cli_calls:
+        label = " ".join(argv)
+        before = counts()
+        rc, printed = quiet(cli.main, argv)
+        after = counts()
+        rec = json.loads(printed.strip().splitlines()[-1])
+        if rc != 0:
+            raise RuntimeError(f"cli {label}: exit {rc}")
+        if tol is None:
+            if not rec["gbps"] > 0:
+                raise RuntimeError(f"cli {label}: {rec}")
+            res[label] = {"gbps": rec["gbps"]}
+            continue
+        f64 = rec["dtype"] == "float64"
+        knames = [route_of(rec["method"], rec.get("k", 1), f64)]
+        if argv[0] == "solve":
+            knames.append("sptrsv_csr_f64" if f64 else "sptrsv_csr")
+        else:
+            for key in ("bound_us", "device"):
+                if key not in rec:
+                    raise RuntimeError(f"cli {label}: no {key} in {rec}")
+            if "baseline_us" not in rec and "baseline_error" not in rec:
+                raise RuntimeError(f"cli {label}: no baseline in {rec}")
+        for kname in knames:
+            if after[kname] == before[kname]:
+                raise RuntimeError(f"cli {label}: route {rec['method']!r} "
+                                   f"launched no {kname}")
+        if not rec["rel_err"] < tol:
+            raise RuntimeError(f"cli {label}: rel_err {rec['rel_err']} >= "
+                               f"{tol}")
+        res[label] = {key: rec.get(key) for key in (
+            "method", "route_reason", "rel_err", "seconds_per_iter",
+            "bound_us", "baseline_us", "iterations", "kernel_share")}
+        res[label]["kernels"] = knames
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0,
+          "tol": {" ".join(a): t for a, t in cli_calls}, "checks": res})
+    cli_launches = counts()
+    emit({"phase": "launches", "path": "cli", **cli_launches})
+    for kname in ("spmv_csr", "spmm_bsr", "sptrsv_csr", "spmv_csr_f64",
+                  "sptrsv_csr_f64"):
+        if cli_launches[kname] == 0:
+            raise RuntimeError(f"the CLI's path never launched {kname}")
+    launches = {name: launches[name] + cli_launches[name]
+                for name in kernels}
+
+    reset()
+    t0 = time.perf_counter()
+    printed = {}
+    for mod, argv in ((ex_cg, ["48"]), (ex_ilu, ["64"]),
+                      (ex_pr, ["30000"])):
+        rc, printed[mod.__name__] = quiet(mod.main, argv)
+        if rc != 0:
+            raise RuntimeError(f"{mod.__name__}.main: exit {rc}")
+    res = {}
+    a = datasets.poisson2d(24, dtype=np.float32)
+    b = np.random.default_rng(1).standard_normal(a.shape[0]).astype(
+        np.float32)
+    _, it, r_plain = ex_cg.cg(a, b, tol=1e-5)
+    xp, itp, r_ssor = ex_cg.cg(a, b, tol=1e-5,
+                               m_solve=ex_cg.ssor_preconditioner(a))
+    err = float(np.linalg.norm(a.to_scipy() @ xp.cpu().numpy() - b)
+                / np.linalg.norm(b))
+    if not (r_plain < 1e-5 and r_ssor < 1e-5 and itp < it and err < 5e-5):
+        raise RuntimeError(f"cg example: {it}, {itp} iterations, residuals "
+                           f"{r_plain}, {r_ssor}, true {err}")
+    res["cg"] = {"iterations": it, "ssor_iterations": itp, "true_rel_err": err}
+    a, b, (_, plain), (x1, pre) = ex_ilu.solve(nx=24, eps=0.02)
+    err = float(np.linalg.norm(a.to_scipy() @ x1.cpu().numpy() - b)
+                / np.linalg.norm(b))
+    if not (pre["rel_residual"] < 1e-6
+            and pre["iterations"] < plain["iterations"] / 2 and err < 1e-4):
+        raise RuntimeError(f"convection_ilu example: {plain}, {pre}, {err}")
+    res["convection_ilu"] = {"plain": plain, "ilu0": pre, "true_rel_err": err}
+    # as the JAX package's test asks of its bucket route: converged to 1e-9
+    # in under 200 iterations, and the pseg path (the merge kernel) beside
+    # it; both routes sum each row in a fixed order, so the iteration
+    # reaches its fixed point
+    g = datasets.emulate("uk-2002", scale=0.01, dtype=np.float32)
+    r, it = ex_pr.pagerank(g, method="bucket", tol=1e-9)
+    rp, itp = ex_pr.pagerank(g, method="pseg", tol=1e-9)
+    diff = float((rp - r).abs().max() / r.max())
+    res["pagerank"] = {"bucket_iterations": it, "sum": float(r.sum()),
+                       "pseg_iterations": itp, "pseg_vs_bucket": diff}
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0,
+          "checks": res, "printed": printed})
+    if not (abs(float(r.sum()) - 1.0) < 1e-3 and it < 200 and itp < 200
+            and diff < 1e-5):
+        raise RuntimeError(f"pagerank example: {res['pagerank']}")
+    example_launches = counts()
+    emit({"phase": "launches", "path": "examples", **example_launches})
+    for kname in ("spmv_csr", "spmm_csr", "sptrsv_csr"):
+        if example_launches[kname] == 0:
+            raise RuntimeError(f"the examples never launched {kname}")
+    launches = {name: launches[name] + example_launches[name]
+                for name in kernels}
+    del g, r, rp
+
+    reset()
+    t0 = time.perf_counter()
+    suite_out = BUILD_DIR / "smoke_suite.jsonl"
+    suite_out.unlink(missing_ok=True)
+    rc, _ = quiet(run_suite.main, ["--quick", "--case", "cant", "--out",
+                                   str(suite_out)])
+    recs = [json.loads(line) for line in suite_out.read_text().splitlines()]
+    benched = [r for r in recs if "seconds_per_iter" in r
+               and r["name"] != "stream_triad"]
+    if rc != 0 or not benched or any("error" in r for r in recs):
+        raise RuntimeError(f"run_suite --quick --case cant: exit {rc}, "
+                           f"{len(benched)} records")
+    emit({"phase": "suite", "seconds": time.perf_counter() - t0,
+          "records": len(recs), "out": str(suite_out),
+          "us": {f"{r['stage']} {r['name']} {r['method']}"
+                 + (f" br={r['block_rows']}" if "block_rows" in r else ""):
+                 r["seconds_per_iter"] * 1e6 for r in benched}})
+    suite_launches = counts()
+    emit({"phase": "launches", "path": "suite", **suite_launches})
+    for kname in ("spmv_csr", "spmm_bsr"):
+        if suite_launches[kname] == 0:
+            raise RuntimeError(f"the suite never launched {kname}")
+    launches = {name: launches[name] + suite_launches[name]
+                for name in kernels}
+
     # the csr SpMV route by name on the graphs' rows of 10^5+ nonzeros, with
     # this run's random x (outside the launch windows)
     for name, a in graphs.items():
@@ -1064,47 +1291,6 @@ def main() -> int:
               **row})
         del nat, rel, sp, x0, want
 
-    # 6c. the share size: the nnz-balanced kernel at each unit of merged-path
-    # items on both graphs, K = 1, 8 (the rows kernel) and 32 (the columns
-    # kernel), each unit checked against the plain version before it is
-    # timed
-    for name, a in graphs.items():
-        t = sblas_torch.to_device(a, dev)
-        sweep, errs = {}, {}
-        for k in (1, 8, 32):
-            x0 = on_card(vec(a.shape[1], k))
-            for unit in (256, 384, 512, 1024, 2048):
-                op = ckern.prepare(t, unit)
-                errs[f"{unit},K={k}"] = check_plain(
-                    csr_kname(op, k), f"{name} unit={unit} K={k}",
-                    ckern.spmm_csr(op, x0, 2.5),
-                    ckern.spmm_csr_reference(op, x0, 2.5))
-                sweep[f"{unit},K={k}"] = us(
-                    lambda x, x0, op=op: ckern.spmm_csr(op, x, EPS, 1.0, x0),
-                    x0)
-                del op
-        emit({"phase": "unit_sweep", "matrix": name, "card": card,
-              "rule_unit": ckern.UNIT, "rule_unit_cols": ckern.UNIT_COLS,
-              "rule_unit_spmv": ckern.UNIT_SPMV,
-              "us": sweep, "rel_err": errs})
-        del t, x0
-    # a matrix of a few shares: the kernel's time for one wave of shares,
-    # the SpMV rule's MERGE_SHARE_NS
-    small = datasets.banded(300, 5)
-    t = sblas_torch.to_device(small, dev)
-    x0 = on_card(vec(300, 1))
-    one_wave = {}
-    for unit in (256, 512, 1024, 2048):
-        op = ckern.prepare(t, unit)
-        check_plain("spmm_csr", f"banded(300,5) unit={unit}",
-                    ckern.spmm_csr(op, x0, 2.5),
-                    ckern.spmm_csr_reference(op, x0, 2.5))
-        one_wave[unit] = us(
-            lambda x, x0, op=op: ckern.spmm_csr(op, x, EPS, 1.0, x0), x0)
-    emit({"phase": "unit_sweep", "matrix": "banded(300,5)", "card": card,
-          "one_wave_us": one_wave, "rule_share_ns": MERGE_SHARE_NS})
-    del t, x0, op
-
     # 7. SpMM timing on the FEM matrices: the block kernel, its plain
     # version, cuSPARSE, the bound and the other routes -----------------
     spmm_timings = {}
@@ -1160,25 +1346,8 @@ def main() -> int:
     # 7b. the solves: the sync-free kernel through its plan (K = 1, 8 and
     # the backsolve, tickets level by level, small levels grouped), its
     # plain version, the bound, ns per level and cuSPARSE's
-    # triangular_solve; beside it the same kernel with tickets in plain
-    # level order and in row order (its earlier orders); the Jacobi sweeps
-    # on band-parallel ------------------------------------------------------
-    def order_us(op, b0, turns=2, **kw):
-        """Graph-timed us of the solve kernel on ``op`` with its tickets
-        (levels, small ones grouped), in plain level order and in row
-        order, in turns (ticket, level, row, ticket, ...), as its plan is
-        timed (1 and 4 solves, best of 3 each; ``kw`` overrides)."""
-        kw = {"iters_lo": 1, "iters_hi": 4, **kw}
-        level = {**op, "perm": torch.from_numpy(skern.ticket_order(
-            op["levels"], op["lower"], 0)).to(op["perm"].device)}
-        out = {}
-        for order, o in (("ticket_us", op), ("level_us", level),
-                         ("row_order_us", skern.row_order(op))) * turns:
-            t_us = us(lambda x, b0, o=o: skern.sptrsv_csr(o, b0 + EPS * x),
-                      b0, **kw)
-            out[order] = min(out.get(order, t_us), t_us)
-        return out
-
+    # triangular_solve; the Jacobi sweeps on band-parallel. The plain level
+    # and row orders are timed by the suite (``solves`` stage) ----------------
     solve_timings = {}
     # the plain version runs ~8 torch calls a level: one and two solves
     solve_few = {"iters_lo": 1, "iters_hi": 2, "repeats": 1}
@@ -1197,13 +1366,6 @@ def main() -> int:
         plain_us = {k: us(lambda x, b0: skern.sptrsv_csr_reference(
             op, b0 + EPS * x), on_card(mk(l.shape[0], k)), **solve_few)
             for k in (1, 8)}
-        # the 1M-row factor's three orders in one turn (its row order takes
-        # 20-116 ms a solve), the others in two
-        turns = 1 if l.shape[0] >= 1_000_000 else 2
-        orders = {"K=1": order_us(op, on_card(mk(l.shape[0], 1)), turns),
-                  "K=8": order_us(op, on_card(mk(l.shape[0], 8)), turns),
-                  "trans K=1": order_us(sptrsv_plan(lt, lower=False)._op,
-                                        on_card(mk(l.shape[0], 1)), turns)}
         del op
         rows = {}
         for label, rec in recs.items():
@@ -1217,7 +1379,6 @@ def main() -> int:
                 "rel_err": e["rel_err"],
                 "cusparse_us": e.get("baseline_us"),
                 "cusparse_error": e.get("baseline_error"),
-                **orders.get(label, {}),
                 **({"sweeps": e["sweeps"]} if "sweeps" in e else {})}
         rows["K=1"]["plain_us"], rows["K=8"]["plain_us"] = plain_us[1], \
             plain_us[8]
@@ -1226,80 +1387,65 @@ def main() -> int:
               "dtype": np.dtype(l.dtype).name, "n": l.shape[0],
               "nnz": l.nnz, **rows})
 
-    # 7b'. the ticket order's group size: the solve kernel with small
-    # levels merged into groups of at most 512 .. 4,096 rows (the rule's
-    # GROUP_ROWS among them), each order checked bit for bit first
-    group_sweep = {}
-    for name, k in (("band-parallel", 1), ("band-parallel", 8),
-                    ("chol-nd-poisson2d-120", 1),
-                    ("chol-nd-poisson2d-1000", 1)):
-        op = sptrsv_plan(factors[name])._op
-        b0 = on_card(vec(op["shape"][0], k))
-        got = skern.sptrsv_csr(op, b0)
-        row = {}
-        for g in (512, 1024, 2048, 4096):
-            o = {**op, "perm": on_card(skern.ticket_order(
-                op["levels"], True, g))}
-            if not torch.equal(skern.sptrsv_csr(o, b0), got):
-                raise RuntimeError(f"{name} group {g}: other bits")
-            row[g] = us(lambda x, b0, o=o: skern.sptrsv_csr(
-                o, b0 + EPS * x), b0, iters_lo=1, iters_hi=4)
-        group_sweep[f"{name} K={k}"] = row
-        del op, b0, got
-    emit({"phase": "ticket_group_sweep", "card": card,
-          "rule_group_rows": skern.GROUP_ROWS, "us": group_sweep})
-
-    # 7c. the solvers: CG + Jacobi in f64 on the 1M-row grid to
-    # convergence, and IC(0)-CG (the same grid), ILU(0)-BiCGSTAB and
-    # ILU(0)-GMRES(30) (convection_diffusion(1000)) in f64 for 30 iterations
-    # each (a cut depth): ms per iteration split into the SpMV, the two
+    # 7c. the solvers: IC(0)-CG in f64 on the 1M-row grid for 30 iterations
+    # (a cut depth): ms per iteration split into the SpMV, the two
     # triangular solves and the rest, the kernels' share of the wall time,
-    # and the reported residual against the true one --------------------
-    solver_timings = {}
-    c1m = datasets.convection_diffusion(1000, dtype=np.float64)
+    # and the reported residual against the true one. Then, untimed,
+    # ILU(0)-BiCGSTAB and ILU(0)-GMRES(30) for 30 iterations on the 1M-row
+    # convection_diffusion grid, their reported residual held to the true
+    # one, and each 1M-row factor's solves held bit for bit to the same
+    # kernel in row order and in plain level order. The suite's ``solvers``
+    # stage times the other solvers, those orders and the factorizations
+    # ------------------------------------------------------------------------
     p1m = grid[np.float64]
-    runs = [("cg+jacobi", solvers.cg, p1m, solvers.jacobi(p1m),
-             {"tol": 1e-8, "maxiter": 20000}),
-            ("ic0-cg", solvers.cg, p1m, solvers.ichol(p1m),
-             {"tol": 0.0, "maxiter": 30}),
-            ("ilu0-bicgstab", solvers.bicgstab, c1m, solvers.ilu(c1m),
-             {"tol": 0.0, "maxiter": 30}),
-            ("ilu0-gmres(30)", solvers.gmres, c1m, None,
-             {"tol": 0.0, "maxiter": 30, "restart": 30})]
-    for label, solve, a, m_, kw in runs:
-        if m_ is None:          # GMRES shares BiCGSTAB's ILU(0) factor
-            m_ = runs[2][3]
-        row = bench_solver(solve, a, b1m, M=m_, **kw)
-        if label in ("ic0-cg", "ilu0-bicgstab"):
-            # the factors' solves in ticket order against row order: the
-            # same bits, and the three orders' times in this call
-            b0 = on_card(b1m)
-            for side, sp in (("fwd", m_.fwd), ("bwd", m_.bwd)):
-                got = skern.sptrsv_csr(sp._op, b0)
-                if not torch.equal(skern.sptrsv_csr(
-                        skern.row_order(sp._op), b0), got):
-                    raise RuntimeError(f"{label} {side}: ticket order "
-                                       "differs from row order")
-                # row order takes ~0.27 s a solve here: one turn, one
-                # sample of one against two solves
-                row[f"{side}_order_us"] = order_us(sp._op, b0, 1,
-                                                   **solve_few)
-            del b0
-        agree = abs(row["rel_residual"] - row["true_rel_residual"]) / \
-            row["true_rel_residual"]
-        if kw["tol"] and not row["true_rel_residual"] <= 2 * kw["tol"]:
-            raise RuntimeError(f"{label}: true residual "
-                               f"{row['true_rel_residual']}")
-        if not kw["tol"] and not agree <= 1e-6:
+    m_ic = solvers.ichol(p1m)
+    row = bench_solver(solvers.cg, p1m, b1m, M=m_ic, tol=0.0, maxiter=30)
+    agree = abs(row["rel_residual"] - row["true_rel_residual"]) / \
+        row["true_rel_residual"]
+    if not agree <= 1e-6:
+        raise RuntimeError(f"ic0-cg: reported residual {row['rel_residual']} "
+                           f"against the true {row['true_rel_residual']}")
+    row["residual_agreement"] = agree
+    emit({"phase": "solver_timing", "solver": "ic0-cg", "card": card,
+          "matrix": "poisson2d(1000)", **row})
+    t0 = time.perf_counter()
+    c1m = datasets.convection_diffusion(1000, dtype=np.float64)
+    m_ilu = solvers.ilu(c1m)
+    res = {}
+    for label, solve, kw in (("ilu0-bicgstab", solvers.bicgstab, {}),
+                             ("ilu0-gmres(30)", solvers.gmres,
+                              {"restart": 30})):
+        x, info = solve(c1m, b1m, tol=0.0, maxiter=30, M=m_ilu, **kw)
+        xs = x.cpu().numpy()
+        if xs.shape != b1m.shape or not np.isfinite(xs).all():
+            raise RuntimeError(f"{label}: bad solution")
+        true = float(np.linalg.norm(b1m - c1m.to_scipy() @ xs)
+                     / np.linalg.norm(b1m))
+        agree = abs(info["rel_residual"] - true) / true
+        if not (info["iterations"] == 30 and agree <= 1e-6):
             raise RuntimeError(f"{label}: reported residual "
-                               f"{row['rel_residual']} against the true "
-                               f"{row['true_rel_residual']}")
-        row["residual_agreement"] = agree
-        solver_timings[label] = row
-        emit({"phase": "solver_timing", "solver": label, "card": card,
-              "matrix": "poisson2d(1000)" if a is p1m
-              else "convection_diffusion(1000)", **row})
-    del runs
+                               f"{info['rel_residual']} after "
+                               f"{info['iterations']} iterations, true {true}")
+        res[label] = {**info, "true_rel_residual": true,
+                      "residual_agreement": agree}
+    b0 = on_card(b1m)
+    for label, m_ in (("ic0 poisson2d(1000)", m_ic),
+                      ("ilu0 convection_diffusion(1000)", m_ilu)):
+        for side, sp in (("fwd", m_.fwd), ("bwd", m_.bwd)):
+            op = sp._op
+            got = skern.sptrsv_csr(op, b0)
+            level = {**op, "perm": on_card(skern.ticket_order(
+                op["levels"], op["lower"], 0))}
+            for order, o in (("row", skern.row_order(op)), ("level", level)):
+                if not torch.equal(skern.sptrsv_csr(o, b0), got):
+                    raise RuntimeError(f"{label} {side}: the ticket order "
+                                       f"differs from {order} order")
+            res[f"{label} {side}"] = {"nlevels": op["nlevels"],
+                                      "row_order_bit_equal": True,
+                                      "level_order_bit_equal": True}
+    emit({"phase": "solver_checks", "checks": res,
+          "seconds": time.perf_counter() - t0})
+    del m_ic, m_ilu, c1m, b0, got, level, op
 
     # 8. lanes-per-row sweep: every width the csr kernel takes, on cant in
     # f32, bf16 and f64 and on the FEM band in f64 (an earlier f32 sweep of

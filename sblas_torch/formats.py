@@ -15,6 +15,7 @@ matrix identity.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -312,8 +313,18 @@ def check_uploadable(a: CSR, value_dtype=None) -> torch.dtype:
 
 
 def upload(arr: np.ndarray, device) -> torch.Tensor:
-    """A contiguous numpy array as a tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    """A contiguous numpy array as a tensor on ``device``. A read-only array
+    (a matrix loaded memory-mapped, ``matrix_cache``) is copied: to the card
+    as any array is, on the CPU into a tensor of its own."""
+    arr = np.ascontiguousarray(arr)
+    if arr.flags.writeable:
+        return torch.from_numpy(arr).to(device)
+    if torch.device(device).type == "cpu":
+        return torch.from_numpy(arr.copy())
+    with warnings.catch_warnings():
+        # torch warns that it cannot mark the view read-only; .to copies it
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(arr).to(device)
 
 
 def to_device(a: CSR, device, value_dtype=None) -> dict:

@@ -174,6 +174,11 @@ class SpmvPlan:
                 "method='pallas_ds' requested: the 'csr' plan's f64 build "
                 "(the JAX package's double-single planes exist because "
                 "Mosaic has no f64; the card computes in IEEE f64)")
+        elif method == "pallas":
+            method = "csr"
+            self.route_reason = (
+                "method='pallas' requested: the 'csr' plan (the JAX "
+                "package's w-SELL kernel computes the same product)")
         elif method == "pseg_big":
             method = "pseg"
             self.route_reason = (
@@ -246,7 +251,8 @@ class SpmvPlan:
             be = to_bucket_ell(a, max_width=max_width)
             self._buckets = [(self._up(b.val), self._up(b.col))
                              for b in be.buckets]
-            self._perm = self._up(be.perm)
+            self._row_slot, self._split_rows, self._split_slots = map(
+                self._up, bucket_slots(be.perm, self.shape[0]))
             self.fill = be.fill
             self.bytes_per_iter = sum(
                 b.col.size for b in be.buckets) * (val_bytes + 4)
@@ -310,15 +316,42 @@ class SpmvPlan:
             out.index_add_(0, self._rows, self._vals * x[self._cols])
         elif self.method == "ell":
             out = (self._val * x[self._col]).sum(dim=1)[:m]
-        else:  # bucket
-            flat = torch.cat([(val * x[col]).sum(dim=1)
-                              for val, col in self._buckets])
-            out = torch.zeros(m + 1, dtype=flat.dtype, device=self.device)
-            out = out.index_add_(0, self._perm, flat)[:m]
+        else:  # bucket: gathers, no atomics (see bucket_slots)
+            parts = [(val * x[col]).sum(dim=1) for val, col in self._buckets]
+            flat = torch.cat(parts + [parts[0].new_zeros(1)])
+            out = flat[self._row_slot]
+            if self._split_rows.numel():
+                out[self._split_rows] = flat[self._split_slots].sum(dim=1)
         out = alpha * out
         if y is not None:
             out = out + beta * y
         return out
+
+
+def bucket_slots(perm: np.ndarray, m: int):
+    """The bucket route's sum of its slots into rows, as gathers: the slot
+    of each row that has one (``len(perm)``, a zero appended to the slots'
+    sums, for a row split into several), the rows split across slots
+    (longer than ``max_width``) and their slots, one row of a table each,
+    padded with the zero. A split row's partial sums then add in one fixed
+    order on any device, where a scatter-add on the card adds them in the
+    order its atomics land, and PageRank's power iteration never settles
+    to its fixed point."""
+    zero = len(perm)
+    slots = np.flatnonzero(perm < m)                # the rest are padding
+    rows = perm[slots].astype(np.int64)
+    order = np.argsort(rows, kind="stable")
+    rows, slots = rows[order], slots[order]
+    count = np.bincount(rows, minlength=m)
+    row_slot = np.full(m, zero, np.int64)
+    one = count[rows] == 1
+    row_slot[rows[one]] = slots[one]
+    split = np.flatnonzero(count > 1)
+    rows, slots = rows[~one], slots[~one]
+    rank = np.arange(rows.size) - np.searchsorted(rows, rows)
+    table = np.full((split.size, int(count.max(initial=1))), zero, np.int64)
+    table[np.searchsorted(split, rows), rank] = slots
+    return row_slot, split, table
 
 
 def _get_plan(a: CSR, method: str, **kw) -> SpmvPlan:

@@ -29,6 +29,12 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def pick_device(name: str | None) -> torch.device:
+    """The device a command line names: ``cpu``, or the card (``cuda``,
+    the default), which :func:`default_device` checks is there."""
+    return torch.device("cpu") if name == "cpu" else default_device()
+
+
 def find_nvcc() -> str | None:
     """Path of ``nvcc``: on ``PATH``, else under ``$CUDA_HOME`` (default
     ``/usr/local/cuda``). None when there is none."""

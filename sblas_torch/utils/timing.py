@@ -7,6 +7,9 @@ carry-dependent step, ``(t(hi) - t(lo)) / (hi - lo)``, so fixed costs
 two ``torch.cuda.Event``s: that is the counterpart of the JAX package's
 on-device ``fori_loop``, and it keeps the host's per-call Python cost out of
 a number that stands for the device. A path that finds no card raises.
+Where the caller asks for the CPU (``device="cpu"``: the tests, the CLI's
+``--device cpu``), :func:`measure_host_seconds` takes the same marginal
+cost on the host clock instead.
 
 GB/s comes from the caller's bytes model, and bandwidth is also reported as
 a share of a STREAM triad measured on the same card (the north-star
@@ -16,6 +19,7 @@ metric, BASELINE.md).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
@@ -57,6 +61,17 @@ class BenchRecord:
     def gbps(self) -> float:
         return self.bytes / self.seconds_per_iter / 1e9
 
+    def as_dict(self) -> dict:
+        """The JAX package's record: ``name``, ``seconds_per_iter``,
+        ``gflops``, ``gbps``, then ``extra``."""
+        return {
+            "name": self.name,
+            "seconds_per_iter": self.seconds_per_iter,
+            "gflops": self.gflops,
+            "gbps": self.gbps,
+            **self.extra,
+        }
+
 
 def _graph_of(step: Callable, init: torch.Tensor, args, k: int):
     """A CUDA graph of ``k`` chained steps from ``init``."""
@@ -74,8 +89,11 @@ def measure_seconds_per_iter(step: Callable, init: torch.Tensor, *args,
     """Marginal seconds per iteration of ``step(carry, *args) -> carry``.
 
     ``step`` must return a tensor like its carry, so that each iteration
-    depends on the one before. The best of ``repeats`` marginal samples is
-    returned.
+    depends on the one before. Each graph is replayed ``repeats`` times, in
+    turns, and the least time of each stands for it: ``(min t(hi) - min
+    t(lo)) / (hi - lo)``. A stall of the host between the start event and
+    the replay only adds idle time to one sample, which a difference of
+    single samples would carry (a stalled ``lo`` once gave a negative one).
     """
     if not (isinstance(init, torch.Tensor) and init.is_cuda):
         raise RuntimeError("measure_seconds_per_iter times on a CUDA device; "
@@ -107,14 +125,14 @@ def measure_seconds_per_iter(step: Callable, init: torch.Tensor, *args,
             end.synchronize()
             return start.elapsed_time(end) * 1e-3
 
-        samples = []
+        lo, hi = [], []
         for _ in range(repeats):
-            lo, hi = timed(iters_lo), timed(iters_hi)
-            samples.append((hi - lo) / (iters_hi - iters_lo))
-    best = min(samples)
-    if best <= 0:
-        raise RuntimeError(f"iteration time did not scale: {samples}")
-    return best
+            lo.append(timed(iters_lo))
+            hi.append(timed(iters_hi))
+    per = (min(hi) - min(lo)) / (iters_hi - iters_lo)
+    if per <= 0:
+        raise RuntimeError(f"iteration time did not scale: {lo} {hi}")
+    return per
 
 
 def measure_eager_seconds(fn: Callable, *, reps: int = 3) -> float:
@@ -136,25 +154,71 @@ def measure_eager_seconds(fn: Callable, *, reps: int = 3) -> float:
     return start.elapsed_time(end) * 1e-3 / reps
 
 
+def measure_host_seconds(step: Callable, init: torch.Tensor, *args,
+                         iters_lo: int = 5, iters_hi: int = 25,
+                         repeats: int = 3) -> float:
+    """Marginal seconds per iteration of ``step(carry, *args) -> carry`` on
+    the host clock (``time.perf_counter``), a synchronize on each side: the
+    timer of the CPU, where there is no CUDA graph. The host clock of a
+    shared machine only ever adds time to a run, so each count is timed
+    ``max(repeats, 5)`` times, in turns, and the least of each stands for
+    it: ``(min t(hi) - min t(lo)) / (hi - lo)``. A load that lifts during
+    the turns can leave that at or below 0 (its last ``hi`` runs fast, every
+    ``lo`` slow): then the turns go on, up to four rounds, until the least
+    ``lo`` too is taken without the load."""
+    if iters_hi <= iters_lo:
+        raise ValueError("iters_hi must exceed iters_lo")
+    dev = init.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(k):
+        sync()
+        t0 = time.perf_counter()
+        c = init
+        for _ in range(k):
+            c = step(c, *args)
+        sync()
+        return time.perf_counter() - t0
+
+    timed(1)                                # first calls build and allocate
+    lo, hi = [], []
+    for _ in range(4):
+        for _ in range(max(repeats, 5)):
+            lo.append(timed(iters_lo))
+            hi.append(timed(iters_hi))
+        per = (min(hi) - min(lo)) / (iters_hi - iters_lo)
+        if per > 0:
+            return per
+    raise RuntimeError(f"iteration time did not scale: {lo} {hi}")
+
+
 # 256 MiB per array: three of them are over 15x the H100's 50 MB L2
 STREAM_BYTES = 256 * (1 << 20)
+# the CPU's triad (``--device cpu``): 32 MiB per array, past a host's caches
+STREAM_BYTES_CPU = 32 * (1 << 20)
 _STREAM_CACHE: dict = {}
 
 
 def stream_bandwidth(device=None, *, fresh: bool = False) -> float:
-    """Measured STREAM-triad bandwidth (GB/s) of a CUDA device:
-    ``x <- x + 2 b`` over f32 arrays of ``STREAM_BYTES``, counted as three
+    """Measured STREAM-triad bandwidth (GB/s) of a device: ``x <- x + 2 b``
+    over f32 arrays of ``STREAM_BYTES`` (a CUDA graph's marginal cost), or
+    on the CPU of ``STREAM_BYTES_CPU`` (the host clock), counted as three
     arrays moved per iteration. ``fresh=True`` measures anew (the ratio
     protocol pairs each kernel sample with its own triad)."""
     device = torch.device(device if device is not None else "cuda")
     key = str(device)
     if not fresh and key in _STREAM_CACHE:
         return _STREAM_CACHE[key]
-    n = STREAM_BYTES // 4
+    cpu = device.type == "cpu"
+    n = (STREAM_BYTES_CPU if cpu else STREAM_BYTES) // 4
     b = torch.ones(n, dtype=torch.float32, device=device)
     x = torch.zeros(n, dtype=torch.float32, device=device)
-    per = measure_seconds_per_iter(lambda c, b: torch.add(c, b, alpha=2.0),
-                                   x, b, iters_lo=4, iters_hi=16, repeats=2)
+    measure = measure_host_seconds if cpu else measure_seconds_per_iter
+    per = measure(lambda c, b: torch.add(c, b, alpha=2.0), x, b, iters_lo=4,
+                  iters_hi=16, repeats=2)
     bw = 3 * n * 4 / per / 1e9
     _STREAM_CACHE[key] = bw
     return bw

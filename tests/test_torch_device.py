@@ -669,12 +669,43 @@ def test_timing_refuses_a_cpu_carry():
 
 
 def test_bench_refuses_to_run_without_a_card():
+    # the benches run on the card unless the caller names the CPU
     if torch.cuda.is_available():
         pytest.skip("there is a card here")
     from sblas_torch.bench_lib import bench_spmv
 
     with pytest.raises(RuntimeError, match="CUDA"):
-        bench_spmv(datasets.banded(32, 2), device="cpu")
+        bench_spmv(datasets.banded(32, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv,tol", [
+    (["spmv", "--matrix", "cant", "--scale", "0.05"], 2e-5),
+    (["sptrsv", "--matrix", "chol:poisson:40"], 1e-3)])
+def test_cli_records_on_card(cuda, argv, tol, tmp_path):
+    import json
+
+    from sblas_torch import cli
+
+    out = tmp_path / "r.jsonl"
+    assert cli.main([*argv, "--json", str(out)]) == 0
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert rec["device"] == torch.cuda.get_device_name(cuda)
+    assert rec["bound_us"] > 0 and rec["baseline_us"] > 0
+    assert rec["rel_err"] < tol and "timer" not in rec
+    assert rec["seconds_per_iter"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,argv", [("cg", ["24"]),
+                                       ("convection_ilu", ["24", "0.02"]),
+                                       ("pagerank", ["3000"])])
+def test_example_main_on_card(cuda, name, argv, capsys):
+    import importlib
+
+    mod = importlib.import_module(f"sblas_torch.examples.{name}")
+    assert mod.main(argv) == 0
+    assert len(capsys.readouterr().out.splitlines()) >= 2
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

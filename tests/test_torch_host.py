@@ -414,6 +414,40 @@ def test_spmv_and_spmm_leave_the_jax_package_unloaded():
     assert "MODULES []" in out.stdout, out.stdout
 
 
+_ENTRY_SCRIPT = """
+import contextlib, io, sys, tempfile
+from pathlib import Path
+from sblas_torch import cli, datasets
+from sblas_torch.benchmarks import run_suite
+from sblas_torch.examples import cg, convection_ilu, pagerank
+
+with contextlib.redirect_stdout(io.StringIO()):
+    for argv in (["spmv", "--matrix", "poisson:8", "--iters", "4"],
+                 ["sptrsm", "--matrix", "chol:poisson:8", "--iters", "4"],
+                 ["solve", "--matrix", "poisson:8", "--precond", "ilu",
+                  "--solver", "gmres"],
+                 ["stream"]):
+        assert cli.main(["--device", "cpu", *argv]) == 0, argv
+    # the suite's cant at a small size (its table is the one name it reads)
+    run_suite.fem_cases = lambda: {"cant": lambda: datasets.banded(300, 5)}
+    with tempfile.TemporaryDirectory() as d:
+        assert run_suite.main(["--device", "cpu", "--quick", "--case", "cant",
+                               "--out", str(Path(d) / "suite.jsonl")]) == 0
+    assert cg.main(["8", "--device", "cpu"]) == 0
+    assert convection_ilu.main(["8", "--device", "cpu"]) == 0
+    assert pagerank.main(["500", "--device", "cpu"]) == 0
+print("MODULES", sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "sblas")))
+"""
+
+
+def test_cli_suite_and_examples_leave_the_jax_package_unloaded():
+    out = subprocess.run([sys.executable, "-c", _ENTRY_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "MODULES []" in out.stdout, out.stdout
+
+
 def test_reference_package_is_the_one_compared():
     # the comparisons above are against the JAX package, not a second copy
     assert Path(sblas.__file__).parent == ROOT / "sblas"

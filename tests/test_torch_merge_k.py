@@ -34,7 +34,7 @@ from sblas_torch.formats import from_reference, to_device
 from sblas_torch.golden import KERNEL_TOL
 from sblas_torch.ops.kernels import spmm_csr as ckern
 from test_spmm_kres import GEO, _powerlaw
-from test_torch_scattered import _long_rows
+from test_torch_scattered import _long_rows, reference_native  # noqa: F401
 
 KS = [2, 3, 8, 16, 32, 33, 64]
 TOL = 2e-5
@@ -78,6 +78,7 @@ def _reference(route):
                                            jnp.asarray(x)))
 
 
+@pytest.mark.usefixtures("reference_native")
 @pytest.mark.parametrize("design", ["cols", "rows"])
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("route", list(ROUTES))

@@ -15,6 +15,9 @@ exact f32 masked sums); bf16 values: 2e-5 port against reference (both
 round the values to nearest even and sum in f32), 2e-2 against scipy.
 """
 
+import hashlib
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,11 +25,13 @@ import scipy.sparse as sp
 import torch
 
 from sblas import datasets
+from sblas import native as ref_native
 from sblas.formats import COO, CSR as RefCSR, csr_transpose
 from sblas.golden import rel_err, spmm_golden, spmv_golden
 from sblas.ops.kernels.spmm_pseg import PallasSpmmScattered
 from sblas.ops.spmm import SpmmPlan as RefSpmm
 from sblas.ops.spmv import SpmvPlan as RefSpmv
+from sblas.retile_pseg import pack_pseg_hybrid
 from sblas_torch import relabel
 from sblas_torch.formats import from_reference, to_device
 from sblas_torch.golden import KERNEL_TOL
@@ -37,6 +42,44 @@ from test_spmm_kres import GEO, _powerlaw
 
 TOL = 2e-5
 BF16_TOL = 2e-2
+# how long a worker waits for another's g++ to finish the reference's
+# native library, and how often it looks
+NATIVE_WAIT_S = 60.0
+NATIVE_POLL_S = 0.5
+
+
+def load_reference_native(wait_s: float = NATIVE_WAIT_S,
+                          poll_s: float = NATIVE_POLL_S):
+    """The JAX package's native library, loaded.
+
+    ``sblas.native`` compiles its library in place the first time a process
+    asks for it; under ``pytest -n`` several workers do so at once, and one
+    that finds the file half-written fails to load it and keeps ``None``
+    for the rest of its life (``_load_attempted``), so the reference's
+    hybrid PSEG pack, and the parity tests that need it, fail by chance.
+    This clears that state and tries again until the other worker's g++
+    is done; past ``wait_s`` it fails, naming the library.
+    """
+    deadline = time.monotonic() + wait_s
+    while True:
+        lib = ref_native._build_and_load()
+        if lib is not None:
+            return lib
+        if time.monotonic() >= deadline:
+            tag = hashlib.sha256(ref_native._SRC.read_bytes()).hexdigest()[:12]
+            pytest.fail(f"the reference's native library "
+                        f"{ref_native._LIB_DIR / f'_sblas_native_{tag}.so'} "
+                        f"did not load within {wait_s:.0f} s")
+        time.sleep(poll_s)
+        ref_native._lib = None
+        ref_native._load_attempted = False
+
+
+@pytest.fixture(scope="module")
+def reference_native():
+    """The parity tests that build the reference's hybrid PSEG pack need
+    its native library: see :func:`load_reference_native`."""
+    return load_reference_native()
 
 
 def _dense(shape, seed):
@@ -173,6 +216,18 @@ def _kres_matrix():
     return _powerlaw(np.random.default_rng(0), 4500, 4500, 6000)
 
 
+def test_a_worker_whose_first_load_failed_recovers(monkeypatch):
+    # the state a worker is left in when another's g++ was still writing
+    # the library as it tried to load it
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_load_attempted", True)
+    assert ref_native._build_and_load() is None
+    assert load_reference_native() is not None
+    pk = pack_pseg_hybrid(RefCSR.from_scipy(_kres_matrix()), cache=False)
+    assert pk is not None and pk.n_hub_rounds >= 0
+
+
+@pytest.mark.usefixtures("reference_native")
 @pytest.mark.parametrize("k", [3, 8])
 def test_spmm_pseg_vs_reference_kres(k):
     a_sp = _kres_matrix()
@@ -205,6 +260,7 @@ def test_spmm_pseg_odd_k_on_the_kres_matrix(k):
           spmm_golden(a, x, 2.5, -0.5, y0))
 
 
+@pytest.mark.usefixtures("reference_native")
 def test_spmm_pseg_vs_reference_whole_x():
     a_sp = _powerlaw(np.random.default_rng(1), 1200, 2400, 6000)
     a = RefCSR.from_scipy(a_sp)

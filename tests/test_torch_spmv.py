@@ -81,6 +81,37 @@ def test_routes_vs_reference(method, name, dtype):
     assert rel_err(port, spmv_golden(a, x, 2.5, -0.5, y0)) < tol
 
 
+@pytest.mark.parametrize("max_width", [8, 24])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bucket_split_rows_add_by_gathers(monkeypatch, max_width, dtype):
+    # rows longer than max_width are split into slots; the route adds a
+    # row's partial sums through gathers in one fixed order, never through
+    # a scatter-add (whose atomics on the card add them in a new order each
+    # call), and agrees with the reference's split rows
+    a = datasets.powerlaw_graph(600, 10.0, seed=3, dtype=dtype)
+    x = _vec(a.shape[1], 7, dtype)
+    y0 = _vec(a.shape[0], 8, dtype)
+    plan = SpmvPlan(_p(a), "bucket", max_width=max_width, device="cpu")
+    lengths = np.diff(a.indptr)
+    split = plan._split_rows.numpy()
+    np.testing.assert_array_equal(split, np.flatnonzero(lengths > max_width))
+    table = plan._split_slots.numpy()
+    zero = sum(v.shape[0] for v, _ in plan._buckets)
+    assert ((table < zero).sum(axis=1)
+            == -(-lengths[split] // max_width)).all()
+    assert (plan._row_slot.numpy()[split] == zero).all()
+
+    def scatter(*_a, **_k):
+        raise AssertionError("the bucket route scatter-added")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", scatter)
+    port = _np(plan(x, 2.5, -0.5, y0))
+    ref = np.asarray(RefPlan(a, "bucket", max_width=max_width)(
+        x, 2.5, -0.5, y0))
+    assert rel_err(port, ref) < default_tol(dtype)
+    assert rel_err(port, spmv_golden(a, x, 2.5, -0.5, y0)) < default_tol(dtype)
+
+
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_f64_auto_picks_the_reference_route(name):
     # auto runs f64 on the f64 build of the kernel the longest-row rule
