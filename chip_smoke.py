@@ -43,6 +43,13 @@ before it and read just after:
   (``sblas_torch.examples``: each ``main()``, then checked as the JAX
   package's ``tests/test_examples.py`` checks its own) and the suite
   (``sblas_torch.benchmarks.run_suite --quick --case cant``);
+- the distributed plans (``sblas_torch.parallel``, :func:`dist_phase`): a
+  world of one rank over NCCL in this process, every plan on cant and
+  ``uk-2002`` at 5% (and the halo plans on the FEM band) with ``dist_cg``
+  f64 on the 1M-row Poisson grid, each timed beside the single-device plan;
+  then four ranks sharing the card over gloo, staged through host memory
+  (correctness only), each rank's local route launching its kernel and
+  every rank returning the same bits;
 
 checks every result against scipy, and fails where the route the rule
 picked launched no kernel (in f64: no f64 build). It times each kernel
@@ -79,10 +86,12 @@ exits non-zero; so it does without a CUDA device, where it prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -95,6 +104,355 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
+
+
+# the dist phase's alpha, beta and tolerance (f32 against scipy)
+DIST_AB = (2.5, -0.5)
+DIST_TOL = 2e-5
+
+
+# the launch counters (``bench_lib.COUNTERS``) of each local route's kernel
+# builds: a dist plan's call must move one of its route's, of its dtype
+ROUTE_COUNTERS = {"csr": ("spmv_csr", "spmv_csr_f64"),
+                  "block": ("spmm_bsr",),
+                  "merge": ("spmm_csr", "spmm_csr_f64", "spmm_csr_rows",
+                            "spmm_csr_cols", "spmm_csr_cols_f64")}
+ROUTE_COUNTERS["pseg"] = ROUTE_COUNTERS["merge"]
+
+
+def _window(call) -> tuple:
+    """``call()`` with every launch count set to 0 just before it and read
+    just after: ``(its result, {counter: launches} of those that
+    moved)``."""
+    import torch
+
+    from sblas_torch.bench_lib import COUNTERS, launch_counts
+
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+    out = call()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+def _check_routes(label: str, methods, moved: dict, f64: bool) -> None:
+    """Raise unless, for each local route in ``methods``, a counter of its
+    kernel builds of the dtype (f64 or not) moved."""
+    for method in sorted(set(methods)):
+        family = [k for k in ROUTE_COUNTERS.get(method, ())
+                  if k.endswith("_f64") == f64]
+        if not any(moved.get(k) for k in family):
+            raise RuntimeError(f"{label}: route {method!r} launched none of "
+                               f"{family} (launches {moved})")
+
+
+def _dist_inputs(name: str, a, k, cache: dict) -> tuple:
+    """x (or X), y and scipy's ``alpha A x + beta y`` for a matrix and K,
+    the same on every rank (seeded by the matrix's name and K), computed
+    once a run: every plan of the matrix at K takes them."""
+    from sblas_torch.golden import spmm_golden, spmv_golden
+
+    if (name, k) not in cache:
+        rng = np.random.default_rng(zlib.crc32(f"{name} {k}".encode()))
+        m, n = a.shape
+        tail = () if k is None else (k,)
+        x = rng.standard_normal((n, *tail)).astype(a.dtype)
+        y = rng.standard_normal((m, *tail)).astype(a.dtype)
+        golden = spmv_golden if k is None else spmm_golden
+        cache[name, k] = x, y, golden(a, x, *DIST_AB, y)
+    return cache[name, k]
+
+
+def _dist_cases(mats: dict, meshes: dict, world: int) -> list:
+    """``(matrix name, plan label, k, make_plan)`` of every plan the dist
+    phase runs on ``world`` ranks: on cant and uk-2002@0.05 the 1D plans
+    under each strategy, the ring and the 1D SpMM at K = 8 (and 32 at one
+    rank); the 2D
+    and hierarchical plans (on cant alone at one rank, where they run the
+    1D plans' local work); the halo plans on the FEM band at one rank, on
+    cant and uk-2002@0.05 (refused: its halo is not band-local) at
+    several."""
+    from sblas_torch import parallel as par
+
+    one, two, hier = meshes["1d"], meshes["2d"], meshes["hier"]
+    cases = []
+    for name in ("cant", "uk-2002@0.05"):
+        a = mats[name]
+        for st in ("even_rows", "nnz_balanced", "nnz_split"):
+            cases.append((name, f"DistSpmvPlan {st}", None,
+                          lambda a=a, st=st: par.DistSpmvPlan(
+                              a, one, strategy=st)))
+        cases.append((name, "RingSpmvPlan", None,
+                      lambda a=a: par.RingSpmvPlan(a, one)))
+        for k in (8, 32) if world == 1 else (8,):
+            cases.append((name, f"DistSpmmPlan K={k}", k,
+                          lambda a=a, k=k: par.DistSpmmPlan(a, one,
+                                                            k_hint=k)))
+        if world == 1 and name != "cant":
+            continue
+        cases.append((name, "Dist2DSpmvPlan", None,
+                      lambda a=a: par.Dist2DSpmvPlan(a, two)))
+        cases.append((name, "Dist2DSpmmPlan K=8", 8,
+                      lambda a=a: par.Dist2DSpmmPlan(a, two)))
+        for st in ("nnz_balanced", "nnz_split"):
+            cases.append((name, f"HierSpmvPlan {st}", None,
+                          lambda a=a, st=st: par.HierSpmvPlan(
+                              a, hier, strategy=st)))
+        cases.append((name, "HierSpmmPlan K=8", 8,
+                      lambda a=a: par.HierSpmmPlan(a, hier)))
+    for name in (("fem-band-1M-112M",) if world == 1
+                 else ("cant", "uk-2002@0.05")):
+        a = mats[name]
+        cases.append((name, "HaloSpmvPlan", None,
+                      lambda a=a: par.HaloSpmvPlan(a, one)))
+        cases.append((name, "HaloSpmmPlan K=8", 8,
+                      lambda a=a: par.HaloSpmmPlan(a, one)))
+    return cases
+
+
+def _dist_run(name, label, k, make, mats, inputs: dict) -> tuple:
+    """Build and call one dist plan against scipy: ``(plan, record)``, or
+    ``(None, record)`` where the plan refused the matrix. The call is its
+    own launch window (``_window``): raises where the result is off or
+    where a local route of this rank (each step's, on the ring) launched
+    none of its kernel builds."""
+    from sblas_torch.golden import rel_err
+
+    t0 = time.perf_counter()
+    try:
+        plan = make()
+    except ValueError as e:
+        return None, {"refused": str(e)}
+    build_s = time.perf_counter() - t0
+    x, y, want = _dist_inputs(name, mats[name], k, inputs)
+    got, moved = _window(lambda: plan(x, *DIST_AB, y))
+    out = got.cpu().numpy()
+    err = rel_err(out, want)
+    if out.shape != want.shape or not np.isfinite(out).all() or \
+            not err < DIST_TOL:
+        raise RuntimeError(f"{name} {label}: rel_err {err} vs scipy (tol "
+                           f"{DIST_TOL})")
+    methods = getattr(plan, "step_methods", [plan.local_method])
+    _check_routes(f"{name} {label}", methods, moved, f64=False)
+    return plan, {"rel_err": err, "route": plan.local_method,
+                  "step_routes": methods, "launches": moved,
+                  "sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
+                  "build_s": build_s,
+                  "seconds": time.perf_counter() - t0}
+
+
+# the 4-rank gloo run of dist_cg stops here (a cut depth: an iteration
+# there costs ~20 ms of host staging); the world of one runs the same cut
+# too, and the two iterates must be the same bits
+DIST_CG_CUT = 100
+
+
+def _dist_cg(mesh, a, b, cut: bool = False) -> dict:
+    """dist_cg in f64 with Jacobi: to 1e-8, its true residual within 2e-8;
+    or, ``cut``, ``DIST_CG_CUT`` iterations, its reported residual within
+    1e-6 of the true one. The solve is its own launch window: its plan's
+    route must launch its f64 kernel build."""
+    from sblas_torch import parallel as par
+    from sblas_torch import solvers
+
+    t0 = time.perf_counter()
+    tol, maxiter = (0.0, DIST_CG_CUT) if cut else (1e-8, 20000)
+    plan = par.DistSpmvPlan(a, mesh)        # dist_cg's own default plan
+    m = solvers.jacobi(a, device=mesh.device)
+    (x, info), moved = _window(lambda: par.dist_cg(
+        plan, b, tol=tol, maxiter=maxiter, M=m))
+    xs = x.cpu().numpy()
+    true = float(np.linalg.norm(b - a.to_scipy() @ xs) / np.linalg.norm(b))
+    agree = abs(info["rel_residual"] - true) / true
+    if not np.isfinite(xs).all() or (
+            not (info["iterations"] == DIST_CG_CUT and agree <= 1e-6)
+            if cut else not (info["rel_residual"] < 1e-8 and true <= 2e-8)):
+        raise RuntimeError(f"dist_cg: {info}, true residual {true}")
+    _check_routes("dist_cg", [plan.local_method], moved, f64=True)
+    return {**info, "true_rel_residual": true, "route": plan.local_method,
+            "step_routes": [plan.local_method], "launches": moved, "seconds": time.perf_counter() - t0,
+            "sha256": hashlib.sha256(xs.tobytes()).hexdigest()[:16]}
+
+
+DIST_RANK_MATS = ("cant", "uk-2002@0.05", "poisson")
+
+
+def _dist_rank(path: str) -> dict:
+    """One of the ranks that share the card (gloo, staged through host
+    memory): every plan of ``_dist_cases`` on the matrices the parent saved
+    to ``path`` (``launch.save_matrix``), 2D and hierarchical on 2 x 2,
+    then ``dist_cg`` f64 on the Poisson grid, cut to ``DIST_CG_CUT``
+    iterations. Returns each case's record (its result's hash, to hold the
+    ranks' bits equal; the launches of its own window)."""
+    from sblas_torch import parallel as par
+    from sblas_torch.parallel.launch import load_matrix
+
+    with np.load(path) as arrays:
+        mats = {name: load_matrix(arrays, name) for name in DIST_RANK_MATS}
+    meshes = {"1d": par.make_mesh(), "2d": par.make_mesh2d(2, 2),
+              "hier": par.make_mesh_hier(2, 2)}
+    out = {"transport": meshes["1d"].transport,
+           "ranks_per_card": meshes["1d"].ranks_per_card, "cases": {}}
+    inputs = {}
+    for name, label, k, make in _dist_cases(mats, meshes, 4):
+        out["cases"][f"{name} {label}"] = _dist_run(
+            name, label, k, make, mats, inputs)[1]
+    b = np.random.default_rng(3).standard_normal(mats["poisson"].shape[0])
+    out["cases"][f"dist_cg f64 poisson2d(1000), {DIST_CG_CUT} its"] = \
+        _dist_cg(meshes["1d"], mats["poisson"], b, cut=True)
+    return out
+
+
+def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
+    """The distributed plans (``sblas_torch.parallel``), in two parts.
+
+    (a) A world of one rank over NCCL in this process, at full size: the
+    cases of ``_dist_cases`` at one rank (2D and hierarchical on 1 x 1) and
+    ``dist_cg`` f64 with Jacobi on ``poisson`` to 1e-8; each call against
+    scipy, in a launch window of its own in which its local route's kernel
+    must launch. Outside those windows: each plan timed beside the
+    single-device plan of the same route on the same matrix
+    (``bench_lib.dist_seconds``: CUDA graphs where the collectives capture,
+    else CUDA events; the record says which), the cost of the collectives
+    and the padding at one rank, and on uk-2002@0.05 where it goes; two
+    ``bench_lib.bench_dist_spmv`` records; ``solvers.cg``'s iterations
+    beside ``dist_cg``'s.
+
+    (b) Four ranks sharing the card over gloo, staged through host memory
+    (``correctness_only``), on the arrays this run made, saved to a fresh
+    directory: every case on cant and uk-2002@0.05, 2D and hierarchical on
+    2 x 2, and ``dist_cg`` f64 on ``poisson`` cut to ``DIST_CG_CUT``
+    iterations, whose iterate must be the bits of (a)'s at the same cut;
+    every rank's local route must launch its kernel in each call's window,
+    and every rank must return the same bits. Returns the launches of
+    (a)'s windows, summed by kernel."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from sblas_torch import parallel as par
+    from sblas_torch import solvers
+    from sblas_torch.bench_lib import (COUNTERS, EPS, bench_dist_spmv,
+                                       dist_seconds)
+    from sblas_torch.ops.spmm import SpmmPlan
+    from sblas_torch.ops.spmv import SpmvPlan
+    from sblas_torch.parallel.launch import save_matrix, spawn
+    from sblas_torch.utils.timing import measure_seconds_per_iter
+
+    t0 = time.perf_counter()
+    meshes = {"1d": par.make_mesh(), "2d": par.make_mesh2d(),
+              "hier": par.make_mesh_hier()}
+    mesh = meshes["1d"]
+    if (mesh.size, mesh.backend) != (1, "nccl"):
+        raise RuntimeError(f"dist: a world of one over nccl expected, got "
+                           f"{mesh.size} over {mesh.backend}")
+    launches = dict.fromkeys(COUNTERS, 0)
+
+    def add(rec):
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        return rec
+
+    res, timing, single_us, inputs = {}, {}, {}, {}
+    for name, case, k, make in _dist_cases(mats, meshes, 1):
+        label = f"{name} {case}"
+        plan, res[label] = _dist_run(name, case, k, make, mats, inputs)
+        if plan is None:
+            raise RuntimeError(f"{label}: refused at one rank: "
+                               f"{res[label]['refused']}")
+        add(res[label])
+        a = mats[name]
+        method = plan.local_method
+        xd = torch.from_numpy(inputs[name, k][0]).to(mesh.device)
+        per, timer = dist_seconds(
+            mesh, lambda c, x0: plan(c, EPS, 1.0, x0), xd, xd)
+        key = (name, method, k)
+        if key not in single_us:    # one single-device plan a route and K
+            single = SpmvPlan(a, method, device=mesh.device) \
+                if k is None else SpmmPlan(a, method, k_hint=k,
+                                           device=mesh.device)
+            single_us[key] = 1e6 * measure_seconds_per_iter(
+                lambda c, x0: single(c, EPS, 1.0, x0), xd, xd)
+            del single
+        timing[label] = {"dist_us": per * 1e6, "single_us": single_us[key],
+                         "overhead_us": per * 1e6 - single_us[key],
+                         "timer": timer}
+        del plan, xd
+    b = np.random.default_rng(3).standard_normal(poisson.shape[0])
+    res["dist_cg f64 poisson2d(1000)"] = add(_dist_cg(mesh, poisson, b))
+    cut = f"dist_cg f64 poisson2d(1000), {DIST_CG_CUT} its"
+    res[cut] = add(_dist_cg(mesh, poisson, b, cut=True))
+    emit_fn({"phase": "launches", "path": "dist", **launches})
+
+    # outside the launch windows: where a call's time goes on the graph, at
+    # K = 1 and 8: the x gather (padding, all_gather), the local plan, the
+    # y gather (padding, all_gather, unpadding), each graph-timed alone
+    from sblas_torch.parallel.spmv_dist import pad_rows, unpad
+    uk = mats["uk-2002@0.05"]
+    for k in (None, 8):
+        plan = par.DistSpmvPlan(uk, mesh) if k is None else \
+            par.DistSpmmPlan(uk, mesh)
+        xd = torch.from_numpy(inputs["uk-2002@0.05", k][0]).to(mesh.device)
+        xl = plan.local_x(xd)
+        y0 = torch.zeros_like(plan._local(xl))
+        steps = {"gather_x": (lambda c: plan.local_x(c), xd),
+                 "local": (lambda c: plan._local(xl, EPS, 1.0, c), y0),
+                 "gather_y": (lambda c: unpad(plan._gather(pad_rows(
+                     c, plan.rows_pad)), plan._segs), y0)}
+        timing[f"uk-2002@0.05 DistSp{'mv' if k is None else 'mm'}Plan "
+               f"K={k or 1} breakdown"] = {
+            name: 1e6 * measure_seconds_per_iter(step, c0)
+            for name, (step, c0) in steps.items()}
+        del plan, xd, xl, y0
+    # the CLI's record (bench_lib.bench_dist_spmv), here on the world of one
+    for st in ("nnz_balanced", "nnz_split"):
+        rec = bench_dist_spmv(mats["cant"], mesh, strategy=st).as_dict()
+        if not rec["rel_err"] < DIST_TOL:
+            raise RuntimeError(f"bench_dist_spmv cant {st}: {rec}")
+        timing[f"cant bench_dist_spmv {st}"] = {
+            key: rec[key] for key in ("us", "local_us", "collective_us",
+                                      "collective_bytes", "timer",
+                                      "local_method", "rel_err")}
+    _, one = solvers.cg(poisson, b, tol=1e-8, maxiter=20000,
+                        M=solvers.jacobi(poisson))
+    res["dist_cg f64 poisson2d(1000)"]["solvers_cg_iterations"] = \
+        one["iterations"]
+    emit_fn({"phase": "dist", "part": "world of one", "card": card,
+             "backend": mesh.backend, "transport": mesh.transport,
+             "backend_reason": mesh.backend_reason, "checks": res,
+             "timing": timing, "seconds": time.perf_counter() - t0})
+    dist.destroy_process_group()
+
+    t1 = time.perf_counter()
+    srcs = {"cant": mats["cant"], "uk-2002@0.05": mats["uk-2002@0.05"],
+            "poisson": poisson}
+    arrays = {}
+    for name in DIST_RANK_MATS:
+        save_matrix(arrays, name, srcs[name])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/dist_mats.npz"
+        np.savez(path, **arrays)
+        ranks = spawn(4, _dist_rank, path, device="cuda")
+    for r, got in enumerate(ranks):
+        if got["transport"] != "gloo-host" or got["ranks_per_card"] != 4:
+            raise RuntimeError(f"dist rank {r}: {got['transport']}, "
+                               f"{got['ranks_per_card']} ranks a card")
+        for label, rec in got["cases"].items():
+            if rec.get("sha256") != ranks[0]["cases"][label].get("sha256"):
+                raise RuntimeError(f"{label}: rank {r}'s bits differ")
+    if ranks[0]["cases"][cut]["sha256"] != res[cut]["sha256"]:
+        raise RuntimeError(f"{cut}: 4 ranks' iterate differs from one "
+                           "rank's")
+    emit_fn({"phase": "dist", "part": "4 ranks share the card",
+             "correctness_only": True, "ranks_per_card": 4,
+             "transport": "gloo-host", "checks": ranks[0]["cases"],
+             **{f"{key}_by_rank": {label: [g["cases"][label].get(key)
+                                           for g in ranks]
+                                   for label in ranks[0]["cases"]}
+                for key in ("step_routes", "launches")},
+             "seconds": time.perf_counter() - t1})
+    return launches
 
 
 def main() -> int:
@@ -1015,6 +1373,19 @@ def main() -> int:
         if suite_launches[kname] == 0:
             raise RuntimeError(f"the suite never launched {kname}")
     launches = {name: launches[name] + suite_launches[name]
+                for name in kernels}
+
+    # 5g. the distributed plans (sblas_torch.parallel): a world of one
+    # rank over NCCL here at full size, then 4 ranks sharing the card over
+    # gloo (correctness only); see dist_phase -------------------------------
+    dist_launches = dist_phase(
+        {"cant": cant, "uk-2002@0.05": graphs["uk-2002@0.05"],
+         "fem-band-1M-112M": fem}, grid[np.float64], card, emit)
+    for kname in ("spmv_csr", "spmm_csr", "spmm_csr_rows", "spmm_csr_cols",
+                  "spmm_bsr", "spmv_csr_f64"):
+        if dist_launches[kname] == 0:
+            raise RuntimeError(f"the dist path never launched {kname}")
+    launches = {name: launches[name] + dist_launches[name]
                 for name in kernels}
 
     # the csr SpMV route by name on the graphs' rows of 10^5+ nonzeros, with

@@ -44,9 +44,9 @@ from .ops.spmv import SpmvPlan
 from .ops.sptrsm import SptrsmPlan
 from .ops.sptrsv import get_plan as sptrsv_plan
 from .utils.timing import (HBM_BYTES_PER_S, BenchRecord,
-                           measure_eager_seconds, measure_host_seconds,
-                           measure_seconds_per_iter, peak_flops,
-                           stream_bandwidth)
+                           measure_eager_marginal, measure_eager_seconds,
+                           measure_host_seconds, measure_seconds_per_iter,
+                           peak_flops, stream_bandwidth)
 
 # keeps the carry numerically equal to x0 while each iteration depends on
 # the one before (tiny * y underflows against x0)
@@ -335,6 +335,96 @@ def bench_sptrsm(l: CSR, k: int = 8, *, lower: bool = True,
                        plan.bytes_per_iter(k), k, baseline, validate, iters)
     rec.extra["k"] = k
     return rec
+
+
+def dist_seconds(mesh, step, x0, *args, iters=None) -> tuple:
+    """Seconds per call of ``step(carry, *args)``, a step of a distributed
+    plan that every rank of ``mesh`` runs together, and the timer used:
+    ``cuda-graph`` where the mesh runs NCCL and its collectives capture
+    into a CUDA graph, else eager (:func:`measure_eager_marginal`, the same
+    calls on every rank) on ``cuda-events`` (cards) or ``host`` (the CPU).
+    Between ``iters // 5`` and ``iters`` calls (default 2 and 10)."""
+    lo, hi = (max(iters // 5, 1), iters) if iters else (2, 10)
+    graph_error = None
+    if mesh.transport == "nccl":
+        try:
+            return measure_seconds_per_iter(step, x0, *args, iters_lo=lo,
+                                            iters_hi=hi), "cuda-graph"
+        except RuntimeError as e:
+            graph_error = f"{type(e).__name__}: {e}"[:300]
+    per = measure_eager_marginal(step, x0, *args, iters_lo=lo, iters_hi=hi)
+    timer = "cuda-events" if x0.is_cuda else "host"
+    return per, timer if graph_error is None else \
+        f"{timer} (no graph: {graph_error})"
+
+
+def bench_dist_spmv(a: CSR, mesh=None, *, strategy: str = "nnz_balanced",
+                    validate: bool = True,
+                    iters: int | None = None) -> BenchRecord:
+    """One distributed SpMV record (``sblas/bench_lib.py:bench_dist_spmv``),
+    made together by every rank of ``mesh`` (default: :func:`~sblas_torch.
+    parallel.make_mesh` of every rank): a
+    :class:`~sblas_torch.parallel.DistSpmvPlan` under ``strategy``, or on a
+    (``rows``, ``cols``) mesh a :class:`~sblas_torch.parallel.
+    Dist2DSpmvPlan`.
+
+    Each rank validates its ``y`` against scipy. The record: every rank's
+    local route and its reason, the nnz balance, the plan's bytes, this
+    rank's collective bytes, ``us`` (a call, the step of
+    :func:`bench_spmv`, timed by :func:`dist_seconds`: the slowest rank's),
+    ``local_us`` (the local plan alone on this rank's input, timed as
+    :func:`bench_spmv` times a plan) and ``collective_us`` (the rest of the
+    call: its collectives, the padding and the unpadding gather), each also
+    by rank; the backend and why, the transport (``gloo-host``: staged
+    through host memory), ``ranks_per_card``, and ``correctness_only``
+    (true on the CPU and where ranks share a card: such times say nothing
+    of a deployment)."""
+    from .parallel import (Dist2DSpmvPlan, DistSpmvPlan, cols_axis,
+                           make_mesh, rows_axis)
+
+    m, n = a.shape
+    if m != n:
+        raise ValueError("bench uses square matrices (carry feedback)")
+    mesh = mesh or make_mesh()
+    dev = mesh.device
+    two_d = mesh.axis_names == (rows_axis, cols_axis)
+    plan = Dist2DSpmvPlan(a, mesh) if two_d else \
+        DistSpmvPlan(a, mesh, strategy=strategy)
+    x0_np = np.random.default_rng(0).standard_normal(n).astype(a.dtype)
+    x0 = torch.from_numpy(x0_np).to(dev)
+    extra = {"ndev": plan.mesh.size, "mesh": list(mesh.shape), "nnz": a.nnz,
+             "m": m, "dtype": str(np.dtype(a.dtype)),
+             "device": device_name(dev),
+             "local_method": plan.local_method,
+             "routes": [[r[0], r[1]] for r in plan.routes],
+             "nnz_balance": plan.nnz_balance,
+             "collective_bytes": plan.collective_bytes(),
+             "backend": mesh.backend, "backend_reason": mesh.backend_reason,
+             "transport": mesh.transport,
+             "ranks_per_card": mesh.ranks_per_card,
+             "correctness_only": mesh.correctness_only}
+    if not two_d:
+        extra["strategy"] = strategy
+    _validate(a, None, plan(x0), spmv_golden(a, x0_np), extra, validate)
+    per, extra["timer"] = dist_seconds(
+        mesh, lambda x, x0: plan(x, EPS, 1.0, x0), x0, x0, iters=iters)
+    xl = plan.local_x(x0)
+    y0 = torch.zeros(plan._local.shape[0], dtype=plan.dtype, device=dev)
+    local = _measure(dev, lambda c, xl: plan._local(xl, EPS, 1.0, c), y0,
+                     xl, extra={}, iters=iters)
+    by_rank = [None] * mesh.size
+    torch.distributed.all_gather_object(by_rank, (per, local),
+                                        group=mesh.world_group())
+    us = [1e6 * p for p, _ in by_rank]
+    local_us = [1e6 * q for _, q in by_rank]
+    extra.update(us=max(us), local_us=max(local_us),
+                 collective_us=max(u - q for u, q in zip(us, local_us)),
+                 us_by_rank=us, local_us_by_rank=local_us)
+    name = f"dist_spmv2d_{'x'.join(map(str, mesh.shape))}" if two_d \
+        else f"dist_spmv_{strategy}"
+    return BenchRecord(name=name, seconds_per_iter=max(us) * 1e-6,
+                       flops=2.0 * a.nnz, bytes=plan.bytes_per_iter,
+                       extra=extra)
 
 
 # each kernel build's launch count: (wrapper module, counter). A wrapper

@@ -9,14 +9,19 @@ One subcommand a routine, each printing one JSON record (and appending it to
     sblas-torch-bench sptrsv --matrix chol:poisson:120 --compare-reference
     sblas-torch-bench sptrsm --matrix chol:poisson:120 --k 8
     sblas-torch-bench solve  --matrix poisson:256 --dtype f64 --precond ichol
+    sblas-torch-bench dist-spmv --matrix cant --chips 4 --strategy nnz_split
+    sblas-torch-bench dist-spmv --matrix cant --chips 4 --mesh2d 2x2
     sblas-torch-bench stream
     sblas-torch-bench --device cpu spmv --matrix poisson:64
 
 (also ``python -m sblas_torch.cli``). Everything runs on the card unless
 ``--device cpu`` is given; without a card the default raises. The JAX
 CLI's ``--x64`` and ``--platform`` have no counterpart: ``--dtype f64``
-needs no switch, and ``--device`` picks the device. ``dist-spmv`` comes with
-the port's distributed plans and is not offered yet. A record carries the
+needs no switch, and ``--device`` picks the device. ``dist-spmv`` runs
+:func:`~sblas_torch.bench_lib.bench_dist_spmv` on ranks of its own: under
+``torchrun`` on the ranks it gives; else it starts ``--chips`` local ranks
+(:func:`~sblas_torch.parallel.launch.spawn`; 0: one a card, one on the
+CPU), and rank 0 prints the record. A record carries the
 JAX CLI's keys (``name``, ``seconds_per_iter``, ``gflops``, ``gbps``,
 ``matrix``) and in ``extra`` the device, the route and its reason,
 ``rel_err``, and on the card the bound (``bound_us``) and cuSPARSE
@@ -75,7 +80,7 @@ def _dtype(s: str):
 
 
 def _emit(rec, args) -> dict:
-    d = rec.as_dict()
+    d = rec if isinstance(rec, dict) else rec.as_dict()
     line = json.dumps(d)
     print(line, flush=True)
     if args.json:
@@ -165,6 +170,18 @@ def _parser() -> argparse.ArgumentParser:
     common(sp, tri=True)
     sp.add_argument("--k", type=int, default=8)
 
+    sp = sub.add_parser("dist-spmv")
+    common(sp)
+    sp.add_argument("--strategy", default="nnz_balanced",
+                    choices=["even_rows", "nnz_balanced", "nnz_split"])
+    sp.add_argument("--chips", type=int, default=0,
+                    help="local ranks to start (0 = one a card; one on the "
+                         "CPU); under torchrun, its ranks")
+    sp.add_argument("--mesh2d", default=None, metavar="RxC",
+                    help="the 2D plan on an RxC mesh (e.g. 2x4): x sharded "
+                         "over cols, partial y summed over cols, no x "
+                         "gather")
+
     sp = sub.add_parser("solve")
     common(sp)
     sp.add_argument("--solver", default="cg", choices=list(SOLVERS))
@@ -218,8 +235,52 @@ def _solve(args, mat, dev):
                        flops=2.0 * mat.nnz * it, extra=extra)
 
 
-def main(argv=None) -> int:
+def _dist_rank(argv) -> dict | None:
+    """One rank of ``dist-spmv``: the record, on rank 0 only."""
+    import torch.distributed as dist
+
+    from . import bench_lib
+    from .parallel import make_mesh, make_mesh2d
+
     args = _parser().parse_args(argv)
+    dev = None if args.device == "cuda" else torch.device("cpu")
+    mat = _load_matrix(args.matrix, args.scale, _dtype(args.dtype))
+    if args.mesh2d:
+        r, c = (int(v) for v in args.mesh2d.lower().split("x"))
+        mesh = make_mesh2d(r, c, device=dev)
+    else:
+        mesh = make_mesh(device=dev)
+    with _profile(args.profile and f"{args.profile}/rank{dist.get_rank()}",
+                  mesh.device):
+        rec = bench_lib.bench_dist_spmv(mat, mesh, strategy=args.strategy,
+                                        validate=not args.no_validate,
+                                        iters=args.iters)
+    rec.extra["matrix"] = args.matrix
+    return rec.as_dict() if dist.get_rank() == 0 else None
+
+
+def _dist_spmv(args, argv) -> int:
+    import os
+
+    from .parallel.launch import spawn
+
+    if "RANK" in os.environ:            # torchrun started this rank
+        rec = _dist_rank(argv)
+    else:
+        dev = pick_device(args.device)
+        chips = args.chips or (torch.cuda.device_count()
+                               if dev.type == "cuda" else 1)
+        rec = spawn(chips, _dist_rank, argv, device=dev.type)[0]
+    if rec is not None:
+        _emit(rec, args)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    if args.cmd == "dist-spmv":
+        return _dist_spmv(args, argv)
     dev = pick_device(args.device)
 
     from . import bench_lib

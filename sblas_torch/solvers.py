@@ -6,7 +6,9 @@
                                         M=sblas_torch.solvers.ilu(A))
 
 ``cg`` (SPD), ``bicgstab`` and restarted ``gmres`` (general square A) take a
-CSR, a CSC or an :class:`~sblas_torch.ops.spmv.SpmvPlan`, cast ``b`` and
+CSR, a CSC, an :class:`~sblas_torch.ops.spmv.SpmvPlan` or any plan with its
+protocol (``shape``, ``dtype``, ``device``, ``plan(x, alpha, beta, y)``: the
+distributed plans of :mod:`sblas_torch.parallel`), cast ``b`` and
 ``x0`` to the plan's dtype (f32 or f64) and return ``(x, {"iterations",
 "rel_residual"})`` with ``x`` on the plan's device. Each is a plain Python
 loop over device tensors: the matrix products go through the plan (``auto``:
@@ -232,11 +234,19 @@ def _ic0_numpy(indptr, indices, vals) -> int:
     return 0
 
 
+def _is_plan(a) -> bool:
+    """Has ``a`` the SpMV protocol: ``shape``, ``dtype``, ``device`` and
+    ``a(x, alpha, beta, y)`` (an :class:`SpmvPlan`, a distributed plan of
+    :mod:`sblas_torch.parallel`)?"""
+    return callable(a) and all(hasattr(a, k) for k in ("shape", "dtype",
+                                                        "device"))
+
+
 def _setup(a, b, x0, name: str, method: str, device):
-    """The square plan of ``a``, and ``b``, ``x`` (``x0`` or zeros) on its
-    device in its dtype."""
-    plan = a if isinstance(a, SpmvPlan) else SpmvPlan(a, method,
-                                                      device=device)
+    """The square plan of ``a`` (a matrix, or a plan with the SpMV
+    protocol), and ``b``, ``x`` (``x0`` or zeros) on its device in its
+    dtype."""
+    plan = a if _is_plan(a) else SpmvPlan(a, method, device=device)
     n = plan.shape[0]
     if plan.shape[0] != plan.shape[1]:
         raise ValueError(f"{name} needs a square matrix")

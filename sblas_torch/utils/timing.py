@@ -165,7 +165,12 @@ def measure_host_seconds(step: Callable, init: torch.Tensor, *args,
     it: ``(min t(hi) - min t(lo)) / (hi - lo)``. A load that lifts during
     the turns can leave that at or below 0 (its last ``hi`` runs fast, every
     ``lo`` slow): then the turns go on, up to four rounds, until the least
-    ``lo`` too is taken without the load."""
+    ``lo`` too is taken without the load. A load that lasts through the
+    four rounds can hide a step shorter than the delays it adds: then both
+    counts are doubled, so the step's share of a run grows while the
+    delays do not, and the rounds start over, up to counts of eight times
+    ``lo`` and ``hi``. A step that never costs more at more iterations
+    raises."""
     if iters_hi <= iters_lo:
         raise ValueError("iters_hi must exceed iters_lo")
     dev = init.device
@@ -184,15 +189,55 @@ def measure_host_seconds(step: Callable, init: torch.Tensor, *args,
         return time.perf_counter() - t0
 
     timed(1)                                # first calls build and allocate
-    lo, hi = [], []
-    for _ in range(4):
-        for _ in range(max(repeats, 5)):
-            lo.append(timed(iters_lo))
-            hi.append(timed(iters_hi))
-        per = (min(hi) - min(lo)) / (iters_hi - iters_lo)
-        if per > 0:
-            return per
+    for scale in (1, 2, 4, 8):
+        n_lo, n_hi = iters_lo * scale, iters_hi * scale
+        lo, hi = [], []
+        for _ in range(4):
+            for _ in range(max(repeats, 5)):
+                lo.append(timed(n_lo))
+                hi.append(timed(n_hi))
+            per = (min(hi) - min(lo)) / (n_hi - n_lo)
+            if per > 0:
+                return per
     raise RuntimeError(f"iteration time did not scale: {lo} {hi}")
+
+
+def measure_eager_marginal(step: Callable, init: torch.Tensor, *args,
+                           iters_lo: int = 2, iters_hi: int = 10,
+                           repeats: int = 3) -> float:
+    """Marginal seconds per iteration of ``step(carry, *args) -> carry``,
+    run eagerly: ``(min t(hi) - min t(lo)) / (hi - lo)`` over ``repeats``
+    turns, on CUDA events for a carry on the card, else the host clock.
+    Unlike the other timers it makes the same number of calls on every
+    run, whatever it measures, so that ranks that time a collective
+    together stay in step. The result may be at or below 0 where the
+    clock's noise exceeds the step."""
+    if iters_hi <= iters_lo:
+        raise ValueError("iters_hi must exceed iters_lo")
+    cuda = init.is_cuda
+
+    def timed(k):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        c = init
+        for _ in range(k):
+            c = step(c, *args)
+        if cuda:
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) * 1e-3
+        return time.perf_counter() - t0
+
+    timed(1)                                # first calls build and allocate
+    lo, hi = [], []
+    for _ in range(repeats):
+        lo.append(timed(iters_lo))
+        hi.append(timed(iters_hi))
+    return (min(hi) - min(lo)) / (iters_hi - iters_lo)
 
 
 # 256 MiB per array: three of them are over 15x the H100's 50 MB L2

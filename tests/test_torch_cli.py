@@ -173,8 +173,20 @@ def test_profile_writes_a_trace(tmp_path):
 
 
 def test_dist_spmv_is_not_offered():
+    # what the JAX CLI's dist-spmv does not offer, a strategy of another
+    # name, the port's does not offer either (the subcommand itself runs
+    # since the port has distributed plans: the test below)
     with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu", "dist-spmv", "--matrix", "poisson:8"])
+        cli.main(["--device", "cpu", "dist-spmv", "--matrix", "poisson:8",
+                  "--strategy", "rows"])
+
+
+def test_dist_spmv_runs_on_one_rank(capsys):
+    # here on one gloo rank; tests/test_torch_dist_entry.py runs two
+    assert cli.main(["--device", "cpu", "dist-spmv", "--matrix", "poisson:8",
+                     "--chips", "1", "--iters", "5"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["name"] == "dist_spmv_nnz_balanced" and rec["rel_err"] < 2e-5
 
 
 def test_cli_runs_on_the_card_by_default(monkeypatch):
@@ -226,6 +238,34 @@ def test_host_timer_outlasts_a_load_that_lifts(monkeypatch):
         perf_counter=lambda: 0.0))
     with pytest.raises(RuntimeError, match="did not scale"):
         measure_host_seconds(step, torch.zeros(1))
+
+
+def test_host_timer_doubles_its_counts_under_a_lasting_load(monkeypatch):
+    # a load that holds up every short run of the first four rounds longer
+    # than the 20 steps a long run adds: the counts double, and the first
+    # round at 10 and 50 steps, the load gone, gives the step's cost
+    from sblas_torch.utils import timing
+
+    clock, reads, calls = [0.0], [0], [0]
+
+    def perf_counter():
+        reads[0] += 1
+        run = (reads[0] - 1) // 2      # 0 the warm-up, then lo, hi, lo, ...
+        if reads[0] % 2 == 0 and run <= 40 and run % 2 == 1:
+            clock[0] += 1e-2           # the short run ends late
+        return clock[0]
+
+    def step(c):
+        calls[0] += 1
+        clock[0] += 1e-4
+        return c
+
+    monkeypatch.setattr(timing, "time", SimpleNamespace(
+        perf_counter=perf_counter))
+    per = measure_host_seconds(step, torch.zeros(1), iters_lo=5,
+                               iters_hi=25)
+    assert per == pytest.approx(1e-4)
+    assert calls[0] == 1 + 4 * 5 * (5 + 25) + 5 * (10 + 50)
 
 
 def test_benches_on_the_cpu_leave_out_the_card_only_fields():

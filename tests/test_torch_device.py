@@ -708,6 +708,35 @@ def test_example_main_on_card(cuda, name, argv, capsys):
     assert len(capsys.readouterr().out.splitlines()) >= 2
 
 
+@pytest.mark.cuda
+def test_dist_world_of_one_on_card(cuda):
+    # a world of one rank runs NCCL on the card; the row plans give the
+    # single-device plan's bits (the shard is the whole matrix, its kernel
+    # the same launch), and the csr kernel launched for it
+    import torch.distributed as dist
+
+    from sblas_torch.parallel import DistSpmvPlan, make_mesh
+
+    a = datasets.emulate("cant", dtype=np.float32)
+    x, y = _vec(a.shape[1], 1), _vec(a.shape[0], 2)
+    mesh = make_mesh()
+    try:
+        assert (mesh.backend, mesh.transport) == ("nccl", "nccl")
+        one = sblas_torch.SpmvPlan(a, "auto", device=cuda)(x, 2.5, -0.5, y)
+        for strategy in ("even_rows", "nnz_balanced"):
+            before = kern.LAUNCHES
+            plan = DistSpmvPlan(a, mesh, strategy=strategy)
+            assert plan.local_method == "csr"
+            got = plan(x, 2.5, -0.5, y)
+            assert kern.LAUNCHES > before
+            assert torch.equal(got, one)
+        got = DistSpmvPlan(a, mesh, strategy="nnz_split")(x, 2.5, -0.5, y)
+        assert rel_err(got.cpu().numpy(),
+                       spmv_golden(a, x, 2.5, -0.5, y)) < 2e-5
+    finally:
+        dist.destroy_process_group()
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     # alone in a directory, or on a machine where torch sees no card, the
     # smoke run exits non-zero and prints no result line

@@ -3,7 +3,8 @@
 The port copies ``formats`` (``has_full_diagonal`` too), ``io``,
 ``datasets`` (and ``examples/convection_ilu.py``'s ``convection_diffusion``),
 ``golden``, ``retile``, ``retile_bsr``, ``reorder``, ``hub_relabel``
-(``relabel``), ``sptrsv_schedule`` and the solvers' plain factorizations
+(``relabel``), ``sptrsv_schedule``, ``partition`` (and
+``validate_partition``'s refusals) and the solvers' plain factorizations
 instead of importing them, and computes the solves' dependency levels
 itself (``levels``, where the JAX package has a native sweep). These tests
 hold every copy
@@ -26,6 +27,7 @@ import sblas
 import sblas_torch
 from sblas import datasets as ref_ds
 from sblas import golden as ref_golden
+from sblas import partition as ref_partition
 from sblas import native as ref_native
 from sblas import sptrsv_schedule as ref_sched
 from sblas import io as ref_io
@@ -33,8 +35,8 @@ from sblas import retile as ref_retile
 from sblas import reorder as ref_reorder
 from sblas import retile_bsr as ref_bsr
 from sblas.ops.kernels import spmv_pseg as ref_pseg
-from sblas_torch import (datasets, golden, io, levels, relabel, reorder,
-                         retile, retile_bsr, sptrsv_schedule)
+from sblas_torch import (datasets, golden, io, levels, partition, relabel,
+                         reorder, retile, retile_bsr, sptrsv_schedule)
 from sblas_torch.formats import CSC, CSR, from_reference, has_full_diagonal
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -328,6 +330,57 @@ def test_goldens_match():
     assert golden.rel_err(x, x + 1e-3) == ref_golden.rel_err(x, x + 1e-3)
     for dt in (np.float64, np.float32, np.float16):
         assert golden.default_tol(dt) == ref_golden.default_tol(dt)
+
+
+PARTITIONED = ("emulate(cant,0.01)", "emulate(uk-2002,1e-4)",
+               "random_csr(skew)", "powerlaw_graph")
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 3, 8])
+@pytest.mark.parametrize("name", PARTITIONED)
+def test_partitions_match(name, ndev):
+    a, r = GENERATORS[name](datasets), GENERATORS[name](ref_ds)
+    for strategy in ("even_rows", "nnz_balanced"):
+        p = partition.partition_rows(a, ndev, strategy)
+        q = ref_partition.partition_rows(r, ndev, strategy)
+        assert (p.ndev, p.strategy) == (q.ndev, q.strategy)
+        np.testing.assert_array_equal(p.row_starts, q.row_starts)
+        np.testing.assert_array_equal(p.nnz_counts, q.nnz_counts)
+        assert p.balance() == q.balance()
+        for pp, qq in zip(p.parts, q.parts, strict=True):
+            _same_csr(pp, qq)
+        partition.validate_partition(a, p)
+    p = partition.partition_nnz_split(a, ndev)
+    q = ref_partition.partition_nnz_split(r, ndev)
+    for field in ("nnz_starts", "first_row", "last_row"):
+        np.testing.assert_array_equal(getattr(p, field), getattr(q, field))
+    for pp, qq in zip(p.parts, q.parts, strict=True):
+        _same_csr(pp, qq)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        partition.partition_rows(a, ndev, "rows")
+
+
+def _broken(mod, a, how):
+    part = mod.partition_rows(a, 3, "even_rows")
+    if how == "rows":
+        starts = part.row_starts.copy()
+        starts[-1] -= 1
+        return mod.RowPartition(3, part.strategy, starts, part.parts)
+    if how == "nnz":
+        return mod.RowPartition(3, part.strategy, part.row_starts,
+                                part.parts[:2] + part.parts[:1])
+    p0, p1, p2 = part.parts               # equal shapes, other columns
+    return mod.RowPartition(3, part.strategy, part.row_starts, (p1, p0, p2))
+
+
+@pytest.mark.parametrize("how", ["rows", "nnz", "parts"])
+def test_validate_partition_refuses_as_the_reference(how):
+    a, r = datasets.random_csr(90, 70, 5, seed=6), ref_ds.random_csr(
+        90, 70, 5, seed=6)
+    with pytest.raises(AssertionError):
+        ref_partition.validate_partition(r, _broken(ref_partition, r, how))
+    with pytest.raises(AssertionError):
+        partition.validate_partition(a, _broken(partition, a, how))
 
 
 def test_from_reference_shares_the_arrays():
