@@ -46,10 +46,14 @@ before it and read just after:
 - the distributed plans (``sblas_torch.parallel``, :func:`dist_phase`): a
   world of one rank over NCCL in this process, every plan on cant and
   ``uk-2002`` at 5% (and the halo plans on the FEM band) with ``dist_cg``
-  f64 on the 1M-row Poisson grid, each timed beside the single-device plan;
-  then four ranks sharing the card over gloo, staged through host memory
-  (correctness only), each rank's local route launching its kernel and
-  every rank returning the same bits;
+  f64 on the 1M-row Poisson grid, and the distributed triangular solves
+  (``DistSptrsvPlan``, ``DistSptrsmPlan`` at K = 8) on
+  ``chol-nd-poisson2d-1000`` in f64 (one batch, the single-device plan's
+  bits at K = 1), each timed beside the single-device plan; then four ranks
+  sharing the card over gloo, staged through host memory (correctness
+  only), with the solves on ``chol-nd-poisson2d-120`` in f32 and f64 at
+  K = 1 and 4, lower and upper, each rank's local route launching its
+  kernel and every rank returning the same bits;
 
 checks every result against scipy, and fails where the route the rule
 picked launched no kernel (in f64: no f64 build). It times each kernel
@@ -118,6 +122,7 @@ ROUTE_COUNTERS = {"csr": ("spmv_csr", "spmv_csr_f64"),
                   "merge": ("spmm_csr", "spmm_csr_f64", "spmm_csr_rows",
                             "spmm_csr_cols", "spmm_csr_cols_f64")}
 ROUTE_COUNTERS["pseg"] = ROUTE_COUNTERS["merge"]
+ROUTE_COUNTERS["syncfree"] = ("sptrsv_csr", "sptrsv_csr_f64")
 
 
 def _window(call) -> tuple:
@@ -274,7 +279,64 @@ def _dist_cg(mesh, a, b, cut: bool = False) -> dict:
             "sha256": hashlib.sha256(xs.tobytes()).hexdigest()[:16]}
 
 
-DIST_RANK_MATS = ("cant", "uk-2002@0.05", "poisson")
+# the dist solves against scipy (sblas_torch.golden's solve tolerances)
+DIST_SOLVE_TOL = {np.float32: 1e-3, np.float64: 1e-10}
+
+
+def _dist_solve(mesh, l, k, lower: bool = True) -> tuple:
+    """``DistSptrsvPlan`` (``k`` None) or ``DistSptrsmPlan`` (``k``
+    columns) of the factor ``l`` built and called once against scipy, the
+    call in a launch window of its own: ``(plan, b, x, record)``. Raises
+    where the result is off, or where a local route of the rank (the
+    sync-free kernel; the csr or merge kernel where the rank has off-batch
+    entries) launched none of its kernel builds of the dtype."""
+    from sblas_torch import parallel as par
+    from sblas_torch.golden import rel_err, sptrsm_golden, sptrsv_golden
+
+    rng = np.random.default_rng(zlib.crc32(f"{l.shape} {k}".encode()))
+    b = rng.standard_normal((l.shape[0], *(() if k is None else (k,))))
+    b = b.astype(l.dtype)
+    t0 = time.perf_counter()
+    plan = (par.DistSptrsvPlan(l, mesh, lower=lower) if k is None else
+            par.DistSptrsmPlan(l, mesh, lower=lower))
+    build_s = time.perf_counter() - t0
+    x, moved = _window(lambda: plan(b))
+    out = x.cpu().numpy()
+    want = (sptrsv_golden(l, b, lower=lower) if k is None else
+            sptrsm_golden(l, b, lower=lower))
+    err = rel_err(out, want)
+    tol = DIST_SOLVE_TOL[np.dtype(l.dtype).type]
+    label = f"{plan.__class__.__name__} K={k or 1} lower={lower}"
+    if out.shape != want.shape or not np.isfinite(out).all() or \
+            not err < tol:
+        raise RuntimeError(f"{label}: rel_err {err} vs scipy (tol {tol})")
+    _check_routes(label, plan.step_methods, moved,
+                  f64=l.dtype == np.float64)
+    return plan, b, x, {
+        "rel_err": err, "nlevels": plan.nlevels, "nbatches": plan.nbatches,
+        "step_routes": plan.step_methods, "launches": moved,
+        "sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
+        "build_s": build_s, "seconds": time.perf_counter() - t0}
+
+
+def _dist_rank_solves(mesh, chol) -> dict:
+    """The 4-rank dist solves: ``chol`` (chol-nd-poisson2d-120) in f32 and
+    f64, K = 1 and 4, lower and upper (its transpose)."""
+    from sblas_torch.formats import csr_transpose
+
+    out = {}
+    for dt in (np.float32, np.float64):
+        low = chol.astype(dt)
+        for lower, l in ((True, low), (False, csr_transpose(low))):
+            for k in (None, 4):
+                name = "DistSptrsvPlan" if k is None else "DistSptrsmPlan"
+                label = (f"chol-nd-poisson2d-120 {np.dtype(dt).name} {name} "
+                         f"K={k or 1} {'lower' if lower else 'upper'}")
+                out[label] = _dist_solve(mesh, l, k, lower)[3]
+    return out
+
+
+DIST_RANK_MATS = ("cant", "uk-2002@0.05", "poisson", "chol120")
 
 
 def _dist_rank(path: str) -> dict:
@@ -300,10 +362,12 @@ def _dist_rank(path: str) -> dict:
     b = np.random.default_rng(3).standard_normal(mats["poisson"].shape[0])
     out["cases"][f"dist_cg f64 poisson2d(1000), {DIST_CG_CUT} its"] = \
         _dist_cg(meshes["1d"], mats["poisson"], b, cut=True)
+    out["cases"].update(_dist_rank_solves(meshes["1d"], mats["chol120"]))
     return out
 
 
-def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
+def dist_phase(mats: dict, poisson, chol: dict, card: str,
+               emit_fn) -> dict:
     """The distributed plans (``sblas_torch.parallel``), in two parts.
 
     (a) A world of one rank over NCCL in this process, at full size: the
@@ -324,8 +388,14 @@ def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
     2 x 2, and ``dist_cg`` f64 on ``poisson`` cut to ``DIST_CG_CUT``
     iterations, whose iterate must be the bits of (a)'s at the same cut;
     every rank's local route must launch its kernel in each call's window,
-    and every rank must return the same bits. Returns the launches of
-    (a)'s windows, summed by kernel."""
+    and every rank must return the same bits. The triangular solves
+    (``DistSptrsvPlan``, ``DistSptrsmPlan``): in (a) on
+    chol-nd-poisson2d-1000 of ``chol`` (the f64 factors) at K = 1 and 8,
+    against scipy, in one batch, K = 1 the single-device plan's bits, each
+    timed beside the single-device plan; in (b) on chol-nd-poisson2d-120 in
+    f32 and f64, K = 1 and 4, lower and upper (its transpose), each against
+    scipy, the same bits on every rank. Returns the launches of (a)'s
+    windows, summed by kernel."""
     import tempfile
 
     import torch
@@ -337,6 +407,7 @@ def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
                                        dist_seconds)
     from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmv import SpmvPlan
+    from sblas_torch.ops.sptrsv import get_plan as get_sptrsv_plan
     from sblas_torch.parallel.launch import save_matrix, spawn
     from sblas_torch.utils.timing import measure_seconds_per_iter
 
@@ -383,6 +454,32 @@ def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
     res["dist_cg f64 poisson2d(1000)"] = add(_dist_cg(mesh, poisson, b))
     cut = f"dist_cg f64 poisson2d(1000), {DIST_CG_CUT} its"
     res[cut] = add(_dist_cg(mesh, poisson, b, cut=True))
+    # the triangular solves at full width: chol-nd-poisson2d-1000 in f64,
+    # one batch; K = 1 must be the single-device plan's bits
+    big = chol["chol-nd-poisson2d-1000"]
+    single = get_sptrsv_plan(big)      # the main path's cached plan
+    for k in (None, 8):
+        plan, bk, x, rec = _dist_solve(mesh, big, k)
+        label = f"chol-nd-poisson2d-1000 f64 {plan.__class__.__name__} " \
+            f"K={k or 1}"
+        res[label] = add(rec)
+        if plan.nbatches != 1:
+            raise RuntimeError(f"{label}: {plan.nbatches} batches at one "
+                               "rank")
+        bd = torch.from_numpy(bk).to(mesh.device)
+        if k is None and not torch.equal(x, single.solve(bd)):
+            raise RuntimeError(f"{label}: not the single-device plan's bits")
+        per, timer = dist_seconds(
+            mesh, lambda c, b0: plan(b0 + EPS * c), bd, bd, iters=5)
+        one = measure_seconds_per_iter(
+            lambda c, b0: single.solve(b0 + EPS * c), bd, bd, iters_lo=1,
+            iters_hi=5)
+        timing[label] = {"dist_us": per * 1e6, "single_us": one * 1e6,
+                         "overhead_us": (per - one) * 1e6, "timer": timer,
+                         "build_s": rec["build_s"]}
+        res[label]["same_bits_as_single"] = k is None
+        del plan, x, bd
+    del single
     emit_fn({"phase": "launches", "path": "dist", **launches})
 
     # outside the launch windows: where a call's time goes on the graph, at
@@ -426,7 +523,7 @@ def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
 
     t1 = time.perf_counter()
     srcs = {"cant": mats["cant"], "uk-2002@0.05": mats["uk-2002@0.05"],
-            "poisson": poisson}
+            "poisson": poisson, "chol120": chol["chol-nd-poisson2d-120"]}
     arrays = {}
     for name in DIST_RANK_MATS:
         save_matrix(arrays, name, srcs[name])
@@ -444,6 +541,9 @@ def dist_phase(mats: dict, poisson, card: str, emit_fn) -> dict:
     if ranks[0]["cases"][cut]["sha256"] != res[cut]["sha256"]:
         raise RuntimeError(f"{cut}: 4 ranks' iterate differs from one "
                            "rank's")
+    for label, rec in ranks[0]["cases"].items():
+        if rec.get("nbatches", 2) < 2:
+            raise RuntimeError(f"{label}: one batch at 4 ranks")
     emit_fn({"phase": "dist", "part": "4 ranks share the card",
              "correctness_only": True, "ranks_per_card": 4,
              "transport": "gloo-host", "checks": ranks[0]["cases"],
@@ -1380,9 +1480,9 @@ def main() -> int:
     # gloo (correctness only); see dist_phase -------------------------------
     dist_launches = dist_phase(
         {"cant": cant, "uk-2002@0.05": graphs["uk-2002@0.05"],
-         "fem-band-1M-112M": fem}, grid[np.float64], card, emit)
+         "fem-band-1M-112M": fem}, grid[np.float64], factors64, card, emit)
     for kname in ("spmv_csr", "spmm_csr", "spmm_csr_rows", "spmm_csr_cols",
-                  "spmm_bsr", "spmv_csr_f64"):
+                  "spmm_bsr", "spmv_csr_f64", "sptrsv_csr_f64"):
         if dist_launches[kname] == 0:
             raise RuntimeError(f"the dist path never launched {kname}")
     launches = {name: launches[name] + dist_launches[name]

@@ -189,6 +189,11 @@ def solver_cases() -> dict[str, Gen]:
                 1000, dtype=np.float64)}
 
 
+def large_key(name: str) -> str:
+    """The matrix cache's key of the large case ``name``."""
+    return f"suite-large-{name}"
+
+
 def large_cases(web: bool = False) -> dict[str, Gen]:
     """The >= 100M-nonzero single-card cases of ``run_suite.py:327``."""
     cases = {
@@ -322,7 +327,7 @@ def stage_large(s: Suite, cases: dict[str, Gen], ks=(8, 32),
     from ..matrix_cache import entry_dir
 
     for name, gen in cases.items():
-        key = f"suite-large-{name}"
+        key = large_key(name)
         cached = (entry_dir(key, root) / "shape.npy").exists()
         t0 = time.perf_counter()
         a = cached_matrix(key, gen, root)

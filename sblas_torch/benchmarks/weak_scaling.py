@@ -10,9 +10,12 @@ graphs, each rank's share of the work held as the rank count grows).
 ``rows`` x ``cols`` mesh: ``x`` sharded over ``cols``, partial ``y``
 summed), ``halo`` (neighbour strips; band-local matrices), ``cg`` (CG on a
 Poisson grid of ``rows-per-chip * chips`` rows: the iteration count must be
-the single-device solver's) and ``spmm`` (``--nrhs`` columns). The
-triangular solves (``sptrsv``, ``sptrsm``) have no distributed port yet
-(``sblas_torch.parallel.NOT_PORTED``): asking for them raises.
+the single-device solver's), ``spmm`` (``--nrhs`` columns) and the
+triangular solves ``sptrsv`` and ``sptrsm`` (``--nrhs`` columns) on
+``lower_triangular(rows-per-chip * chips, avg-deg)``, whose records carry
+the reference's keys (``benchmarks/weak_scaling.py:91-135``): the levels,
+the batches, and the exchange's bytes against the model of twice the
+solution's.
 
 One group of ``max(--chips)`` ranks runs every count (``torchrun``'s ranks,
 or local ranks it starts): at ``c`` ranks the mesh is the first ``c``
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 PLANS = ("1d", "2d", "halo", "cg", "spmm")
+SOLVES = ("sptrsv", "sptrsm")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -49,10 +53,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kind", choices=["powerlaw", "fem"],
                     default="powerlaw")
     ap.add_argument("--chips", default="1,2,4")
-    ap.add_argument("--plan", choices=[*PLANS, "sptrsv", "sptrsm"],
-                    default="1d")
+    ap.add_argument("--plan", choices=[*PLANS, *SOLVES], default="1d")
     ap.add_argument("--nrhs", type=int, default=8,
-                    help="columns for --plan spmm")
+                    help="columns for --plan spmm and sptrsm")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default=None)
     return ap
@@ -67,6 +70,49 @@ def _matrix(args, n: int, seed: int):
     return datasets.random_csr(n, n, args.avg_deg,
                                bandwidth=int(args.avg_deg * 3), seed=seed,
                                dtype=np.float32)
+
+
+def _solve_record(args, nc: int, mesh, rec: dict) -> dict:
+    """The triangular solves' record (``benchmarks/weak_scaling.py:91-135``):
+    validation against scipy, the levels and batches, the stream bytes a
+    rank, the exchange's bytes against twice the solution's (f32); where
+    the ranks have cards of their own, the seconds a solve."""
+    from .. import datasets
+    from ..bench_lib import EPS, dist_seconds
+    from ..golden import rel_err, sptrsm_golden, sptrsv_golden
+    from ..parallel import DistSptrsmPlan, DistSptrsvPlan
+
+    n = args.rows_per_chip * nc
+    l = datasets.lower_triangular(n, args.avg_deg, seed=nc,
+                                  dtype=np.float32)
+    rng = np.random.default_rng(0)
+    if args.plan == "sptrsv":
+        plan = base = DistSptrsvPlan(l, mesh)
+        b = rng.standard_normal(n).astype(np.float32)
+        err = rel_err(plan(b).cpu().numpy(), sptrsv_golden(l, b))
+        rhs = 1
+    else:
+        plan = DistSptrsmPlan(l, mesh)
+        base = plan._sv
+        b = rng.standard_normal((n, args.nrhs)).astype(np.float32)
+        err = rel_err(plan(b).cpu().numpy(), sptrsm_golden(l, b))
+        rhs = args.nrhs
+        rec["nrhs"] = rhs
+    coll = base.collective_bytes * rhs
+    model = 2 * 4 * n * rhs
+    rec.update(n=n, nnz=l.nnz, rel_err=float(err), nlevels=base.nlevels,
+               nbatches=base.nbatches,
+               stream_bytes_per_chip=int(base.bytes_per_iter // nc),
+               collective_bytes=coll, collective_model_2x_solution=model,
+               collective_vs_model=coll / max(model, 1),
+               local_method=base.local_method,
+               routes=[r[0] for r in base.routes])
+    if not mesh.correctness_only:
+        bd = torch.as_tensor(b, device=mesh.device)
+        per, rec["timer"] = dist_seconds(
+            mesh, lambda c, b0: plan(b0 + EPS * c), bd, bd)
+        rec["seconds_per_iter"] = per
+    return rec
 
 
 def _record(args, nc: int, dev) -> dict | None:
@@ -89,6 +135,8 @@ def _record(args, nc: int, dev) -> dict | None:
     rec = {"chips": nc, "plan": args.plan, "backend": mesh.backend,
            "transport": mesh.transport, "ranks_per_card": mesh.ranks_per_card,
            "correctness_only": mesh.correctness_only}
+    if args.plan in SOLVES:
+        return _solve_record(args, nc, mesh, rec)
     rng = np.random.default_rng(0)
     if args.plan == "cg":
         side = max(int(np.sqrt(args.rows_per_chip * nc)), 4)
@@ -184,16 +232,11 @@ def _rank(argv) -> int:
 
 
 def main(argv=None) -> int:
-    from ..parallel import NOT_PORTED
     from ..parallel.launch import spawn
     from ..utils.backend import pick_device
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    if args.plan in ("sptrsv", "sptrsm"):
-        raise NotImplementedError(
-            f"--plan {args.plan}: the distributed triangular solves have no "
-            f"port yet (sblas_torch.parallel.NOT_PORTED = {NOT_PORTED})")
     pick_device(args.device)            # raises where the card is missing
     if "RANK" in os.environ:            # torchrun started this rank
         _rank(argv)

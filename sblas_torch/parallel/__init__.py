@@ -14,8 +14,8 @@ port's own kernels through the single-device plans.
     y = DistSpmvPlan(a, mesh)(x)              # on every rank
 
 Start ranks with ``torchrun``, or locally with
-:func:`.launch.spawn`. ``NOT_PORTED`` names the JAX package's distributed
-triangular solves, which have no port yet.
+:func:`.launch.spawn`. Every name of ``sblas.parallel`` has its port here:
+``NOT_PORTED`` is empty.
 """
 
 from .hier import HierSpmmPlan, HierSpmvPlan
@@ -27,9 +27,10 @@ from .spmm_dist import DistSpmmPlan, dist_spmm
 from .spmv2d import Dist2DSpmvPlan, dist_spmv2d
 from .spmv_dist import DistSpmvPlan, RingSpmvPlan, dist_spmv
 from .spmv_halo import HaloSpmmPlan, HaloSpmvPlan, halo_spmm, halo_spmv
+from .sptrsm_dist import DistSptrsmPlan, dist_sptrsm
+from .sptrsv_dist import DistSptrsvPlan, dist_sptrsv
 
-NOT_PORTED = ("DistSptrsvPlan", "dist_sptrsv", "DistSptrsmPlan",
-              "dist_sptrsm")
+NOT_PORTED = ()
 
 __all__ = [
     "make_mesh", "make_mesh2d", "chips_axis", "rows_axis", "cols_axis",
@@ -39,5 +40,7 @@ __all__ = [
     "Dist2DSpmvPlan", "dist_spmv2d",
     "Dist2DSpmmPlan", "dist_spmm2d",
     "DistSpmmPlan", "dist_spmm",
+    "DistSptrsvPlan", "dist_sptrsv",
+    "DistSptrsmPlan", "dist_sptrsm",
     "dist_cg", "dist_bicgstab", "dist_gmres",
 ]

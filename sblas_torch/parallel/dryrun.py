@@ -10,7 +10,8 @@ shapes, each against scipy: the port of ``dryrun_multichip``
 (:func:`~sblas_torch.parallel.launch.spawn`) and runs :func:`gate` on each:
 the 1D plans under every strategy, the ring, the SpMM plans, the 2D and
 hierarchical plans (``n`` even, at least 4), the halo plans, the one-shot
-functions and the three solvers, each result held to scipy. Every rank must
+functions, the three solvers and the triangular solves (``K = 4`` for
+``sptrsm``), each result held to scipy. Every rank must
 return the same bits. It fails, naming it, on any name that
 ``sblas_torch.parallel.__all__`` exports as a plan class or a function of
 a plan and that it does not gate: the JAX package's dryrun missed
@@ -46,7 +47,8 @@ def gate(n: int, device: str) -> dict:
     rank, against scipy (``AssertionError`` on a miss): ``{name: bytes of
     the result}``, for the caller to hold the ranks' bits equal."""
     from .. import datasets, parallel
-    from ..golden import rel_err, spmm_golden, spmv_golden
+    from ..golden import (rel_err, spmm_golden, spmv_golden, sptrsm_golden,
+                          sptrsv_golden)
 
     rng = np.random.default_rng(0)
     got = {}
@@ -114,6 +116,18 @@ def gate(n: int, device: str) -> dict:
         if not (info["rel_residual"] < 1e-8 and res < 2e-8):
             raise AssertionError(f"{name}: {info}, true residual {res}")
         got[name] = xs.cpu().numpy().tobytes()
+    # the triangular solves, as __graft_entry__.py:120-130 gates them
+    lt = datasets.lower_triangular(32 * n, 4, seed=2, dtype=np.float32)
+    bs = rng.standard_normal(lt.shape[0]).astype(np.float32)
+    bk = rng.standard_normal((lt.shape[0], 4)).astype(np.float32)
+    held("DistSptrsvPlan", parallel.DistSptrsvPlan(lt, mesh)(bs),
+         sptrsv_golden(lt, bs), 1e-3)
+    held("dist_sptrsv", parallel.dist_sptrsv(lt, bs, mesh),
+         sptrsv_golden(lt, bs), 1e-3)
+    held("DistSptrsmPlan", parallel.DistSptrsmPlan(lt, mesh)(bk),
+         sptrsm_golden(lt, bk), 1e-3)
+    held("dist_sptrsm", parallel.dist_sptrsm(lt, bk, mesh),
+         sptrsm_golden(lt, bk), 1e-3)
     return got
 
 

@@ -156,6 +156,14 @@ def _run_case(case: dict, mesh, arrays) -> tuple:
         x, info = getattr(parallel, case["solver"])(
             a, arrays[case["b"]], mesh=mesh, M=m, **kw)
         return x.cpu().numpy(), info
+    if "solve" in case:
+        name, b = case["solve"], arrays[case["b"]]
+        if name.startswith("dist_"):
+            return getattr(parallel, name)(a, b, mesh, **kw).cpu().numpy(), {}
+        plan = getattr(parallel, name)(a, mesh, **kw)
+        return plan(b).cpu().numpy(), {"nlevels": plan.nlevels,
+                                       "nbatches": plan.nbatches,
+                                       "route": plan.step_methods}
     plan = getattr(parallel, case["plan"])(a, mesh, **kw)
     y = arrays[case["y"]] if "y" in case else None
     out = plan(arrays[case["x"]], case.get("alpha", 1.0),
@@ -168,12 +176,13 @@ def run_cases(workdir: str) -> int:
     """The rank side of the tests. Runs each case of ``workdir/cases.json``
     (``{"device", "cases": [...]}``; a case names a mesh (``["1d", P]``,
     ``["2d", R, C]`` or ``["hier", H, C]``), a plan of
-    :mod:`sblas_torch.parallel` or a solver, its keywords, and the arrays of
-    ``workdir/arrays.npz`` it takes) on this rank, and writes its output
-    arrays to ``workdir/out_<rank>.npz`` and what it reported, or the
-    ``ValueError`` it raised, to ``workdir/out_<rank>.json``. Every rank
-    makes the same meshes in the same order. Returns the number of
-    cases."""
+    :mod:`sblas_torch.parallel`, a solver or a triangular solve
+    (``"solve"``: a solve plan or function, ``b`` or ``B``), its keywords,
+    and the arrays of ``workdir/arrays.npz`` it takes) on this rank, and
+    writes its output arrays to ``workdir/out_<rank>.npz`` and what it
+    reported, or the ``ValueError`` it raised, to
+    ``workdir/out_<rank>.json``. Every rank makes the same meshes in the
+    same order. Returns the number of cases."""
     wd = Path(workdir)
     spec = json.loads((wd / "cases.json").read_text())
     arrays = np.load(wd / "arrays.npz")

@@ -737,6 +737,39 @@ def test_dist_world_of_one_on_card(cuda):
         dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dist_sptrsv_world_of_one_on_card(cuda, dtype):
+    # at one rank the dist solve is one batch on the sync-free kernel: the
+    # single-device plan's bits, lower and upper, one and K columns
+    import torch.distributed as dist
+
+    from sblas_torch.parallel import DistSptrsmPlan, DistSptrsvPlan, make_mesh
+
+    low = datasets.cholesky_factor(datasets.poisson2d_nd(
+        40, dtype=np.float64), dtype=np.float64).astype(dtype)
+    rng = np.random.default_rng(4)
+    b = rng.standard_normal(low.shape[0]).astype(dtype)
+    bk = rng.standard_normal((low.shape[0], 6)).astype(dtype)
+    mesh = make_mesh()
+    try:
+        for lower, l in ((True, low), (False, csr_transpose(low))):
+            before = skern.LAUNCHES + skern.LAUNCHES_F64
+            plan = DistSptrsvPlan(l, mesh, lower=lower)
+            assert plan.nbatches == 1
+            one = sblas_torch.SptrsvPlan(l, lower=lower, device=cuda)
+            assert torch.equal(plan(b), one(b))
+            assert skern.LAUNCHES + skern.LAUNCHES_F64 > before
+            got = DistSptrsmPlan(l, mesh, lower=lower)(bk)
+            assert torch.equal(got, sblas_torch.SptrsmPlan(
+                l, lower=lower, device=cuda)(bk))
+            assert rel_err(got.cpu().numpy(), sptrsm_golden(
+                l, bk, lower=lower)) < (1e-3 if dtype == np.float32
+                                        else 1e-10)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     # alone in a directory, or on a machine where torch sees no card, the
     # smoke run exits non-zero and prints no result line

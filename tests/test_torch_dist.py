@@ -22,6 +22,13 @@ and the ``block`` local's 128-row blocks start elsewhere on a shard, so
 those hold to ``default_tol`` only. The f64 solvers to ``tol = 1e-8`` take
 the reference's distributed solvers' iteration counts and the port's
 single-device solvers', and a true residual within ``2 tol``.
+
+The triangular solves (``DistSptrsvPlan``, ``DistSptrsmPlan`` and the
+one-shot functions) run the reference's own cases (``tests/test_parallel.py``,
+``tests/test_dist_fuzz.py``) in the same group: each held to scipy and to
+the reference's plan at ``TOL`` (f32 2e-4, f64 1e-10), the same bits on
+every rank, and the reference's ``nlevels`` and ``nbatches``. Column 0 of
+the K-column solve agrees with the one-column solve to ``rtol`` 1e-5.
 """
 
 import numpy as np
@@ -31,7 +38,9 @@ import sblas.formats as ref_formats
 import sblas.parallel as ref_par
 from sblas import solvers as ref_solvers
 from sblas_torch import datasets, solvers
-from sblas_torch.golden import default_tol, rel_err, spmm_golden, spmv_golden
+from sblas_torch.formats import csr_transpose
+from sblas_torch.golden import (default_tol, rel_err, spmm_golden,
+                                spmv_golden, sptrsm_golden, sptrsv_golden)
 from sblas_torch.ops.spmm import SpmmPlan
 from sblas_torch.ops.spmv import SpmvPlan
 from sblas_torch.parallel.dryrun import nonsymmetric
@@ -39,6 +48,7 @@ from sblas_torch.parallel.launch import run_group, save_matrix
 
 RANKS = 8
 SOLVER_TOL = 1e-8
+TOL = {np.float32: 2e-4, np.float64: 1e-10}   # tests/test_torch_sptrsv.py
 
 
 def _ref(a):
@@ -52,7 +62,68 @@ MATRICES = {
     "band": lambda: datasets.banded(512, 5, seed=3),
     "poisson": lambda: datasets.poisson2d(12, dtype=np.float64),
     "nonsym": lambda: nonsymmetric(12),
+    # the reference's dist solve cases (tests/test_parallel.py)
+    "tri_band": lambda: datasets.lower_triangular(
+        300, 4, bandwidth=9, seed=9, dtype=np.float64),
+    "tri_rand": lambda: datasets.lower_triangular(300, 5, seed=10,
+                                                  dtype=np.float64),
+    "tri_chol": lambda: datasets.cholesky_factor(datasets.spd_diag_dominant(
+        200, 5, bandwidth=12, seed=4, dtype=np.float64), dtype=np.float64),
+    "tri_upper": lambda: csr_transpose(datasets.lower_triangular(
+        250, 5, seed=41, dtype=np.float64)),
+    "tri_clamp": lambda: datasets.lower_triangular(600, 5, seed=1,
+                                                   dtype=np.float32),
+    "tri_sm": lambda: datasets.lower_triangular(500, 5, seed=3,
+                                                dtype=np.float32),
 }
+
+
+def _fuzz(seed):
+    """``tests/test_dist_fuzz.py:22-33``'s factor and ``b`` of ``seed``."""
+    rng = np.random.default_rng(1000 + seed)
+    n = int(rng.integers(40, 1500))
+    deg = float(rng.uniform(1.5, 9.0))
+    skew = float(rng.choice([0.0, 0.0, 1.2]))
+    l = datasets.lower_triangular(n, deg, skew=skew, seed=seed,
+                                  dtype=np.float32)
+    return l, rng.standard_normal(n).astype(np.float32)
+
+
+FUZZ_SEEDS = (0, 2, 5)
+for _seed in FUZZ_SEEDS:
+    MATRICES[f"tri_fuzz{_seed}"] = lambda s=_seed: _fuzz(s)[0]
+
+# (id, plan or function, matrix, keywords, columns of B or None)
+SOLVES = [
+    ("sptrsv-band", "DistSptrsvPlan", "tri_band", {}, None),
+    ("sptrsv-random", "DistSptrsvPlan", "tri_rand", {}, None),
+    ("sptrsv-chol", "DistSptrsvPlan", "tri_chol", {}, None),
+    ("sptrsv-upper", "DistSptrsvPlan", "tri_upper", {"lower": False}, None),
+    ("sptrsv-clamp", "DistSptrsvPlan", "tri_clamp", {}, None),
+    ("sptrsm", "DistSptrsmPlan", "tri_sm", {}, 6),
+    ("sptrsv-sm-col0", "DistSptrsvPlan", "tri_sm", {}, None),
+    ("dist_sptrsv-unit", "dist_sptrsv", "tri_band",
+     {"unit_diagonal": True}, None),
+    ("dist_sptrsm-upper", "dist_sptrsm", "tri_upper", {"lower": False}, 3),
+    *[(f"sptrsv-fuzz{s}", "DistSptrsvPlan", f"tri_fuzz{s}", {}, None)
+      for s in FUZZ_SEEDS],
+]
+SOLVE_K = {cid: k for cid, _, _, _, k in SOLVES}
+
+
+def _solve_b(cid, a):
+    """``b`` or ``B`` of a solve case, from a seed: the reference's
+    (``B[:, 0]`` for the column check; the fuzz cases' own)."""
+    if cid.startswith("sptrsv-fuzz"):
+        return _fuzz(int(cid.removeprefix("sptrsv-fuzz")))[1]
+    if cid in ("sptrsm", "sptrsv-sm-col0"):
+        bk = np.random.default_rng(1).standard_normal((500, 6)).astype(
+            np.float32)
+        return bk if cid == "sptrsm" else np.ascontiguousarray(bk[:, 0])
+    k = SOLVE_K[cid]
+    rng = np.random.default_rng(len(cid))
+    return rng.standard_normal((a.shape[0], *((k,) if k else ()))).astype(
+        a.dtype)
 
 
 def _cases():
@@ -92,6 +163,8 @@ def _cases():
         cases.append({"id": solver, "solver": solver, "matrix": name,
                       "jacobi": jac,
                       "kw": {"tol": SOLVER_TOL, "maxiter": 2000}})
+    for cid, name, matrix, kw, _ in SOLVES:
+        cases.append({"id": cid, "solve": name, "matrix": matrix, "kw": kw})
     for c in cases:
         c["mesh"] = ["1d", RANKS]
     return cases
@@ -131,6 +204,9 @@ def group(tmp_path_factory):
             arrays[f"x_{c['id']}"], arrays[f"y_{c['id']}"] = x, y
             c.update(x=f"x_{c['id']}", y=f"y_{c['id']}", alpha=alpha,
                      beta=beta)
+        elif "solve" in c:
+            arrays[f"b_{c['id']}"] = _solve_b(c["id"], mats[c["matrix"]])
+            c["b"] = f"b_{c['id']}"
         else:
             c["b"] = f"b_{c['matrix']}"
         cases.append(c)
@@ -224,3 +300,52 @@ def test_every_rank_builds_its_own_shard(group):
     assert info["routes"] == ["csr"] * RANKS
     for r in range(RANKS):
         assert infos[r]["spmm-even_rows-block"]["route"] == "block"
+
+
+def _ref_solve(case, a, b):
+    """The reference's plan of a solve case on its 8-device mesh: its
+    ``x`` and the plan (``None`` for the one-shot functions)."""
+    mesh = ref_par.make_mesh(RANKS)
+    name, kw = case["solve"], case["kw"]
+    if name.startswith("dist_"):
+        return np.asarray(getattr(ref_par, name)(_ref(a), b, mesh, **kw)), None
+    plan = getattr(ref_par, name)(_ref(a), mesh, **kw)
+    return np.asarray(plan(b)), getattr(plan, "_sv", plan)
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in SOLVES])
+def test_dist_solve_matches_reference(group, cid):
+    mats, outs, infos = group
+    case = CASE[cid]
+    a = mats[case["matrix"]]
+    _same_on_every_rank(outs, infos, cid)
+    b = _solve_b(cid, a)
+    tol = TOL[a.dtype.type]
+    got = outs[0][cid]
+    golden = sptrsv_golden if b.ndim == 1 else sptrsm_golden
+    assert rel_err(got, golden(a, b, **case["kw"])) < tol
+    want, ref_plan = _ref_solve(case, a, b)
+    assert rel_err(got, want) < tol
+    if ref_plan is not None:
+        assert (infos[0][cid]["nlevels"], infos[0][cid]["nbatches"]) == \
+            (ref_plan.nlevels, ref_plan.nbatches)
+        assert ref_plan.nbatches > 1
+
+
+def test_dist_sptrsm_column_agrees_with_one_rhs(group):
+    # tests/test_parallel.py:233-245: column 0 of the K-column solve
+    # against the one-column solve of B[:, 0]
+    _, outs, _ = group
+    np.testing.assert_allclose(outs[0]["sptrsm"][:, 0],
+                               outs[0]["sptrsv-sm-col0"], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_dist_sptrsv_batching_reduces_collectives(group):
+    # the level batching fuses the Cholesky factor's levels into few
+    # exchanges (tests/test_parallel.py:141-154), each rank's batches on
+    # the sync-free kernel
+    _, _, infos = group
+    info = infos[0]["sptrsv-chol"]
+    assert info["nbatches"] < info["nlevels"] / 4
+    assert info["route"][0] == "syncfree"

@@ -5,17 +5,17 @@
   named as the JAX CLI names its own;
 - ``python -m sblas_torch.benchmarks.weak_scaling --device cpu --chips
   1,2`` under every ``--plan`` writes one validated record a count (CG: the
-  single-device iteration count), and refuses the triangular solves, naming
-  ``NOT_PORTED``;
+  single-device iteration count; the triangular solves: the reference's
+  keys, one batch at one rank);
 - ``dryrun_multichip(4, device="cpu")`` gates every exported plan and
   solver;
 - a world of one rank in this process: the plans' collectives run (the ring
   and halo exchanges do nothing), the row plans give the single-device
   plan's bits, and ``solvers.cg`` takes a distributed plan (the SpMV
   protocol) and the single-device iterations;
-- ``sblas_torch.parallel`` exports the JAX package's names but the four
-  of ``NOT_PORTED``, and a dist call leaves ``jax`` and ``sblas`` out of
-  ``sys.modules``.
+- ``sblas_torch.parallel`` exports the JAX package's names, all of them
+  (``NOT_PORTED`` is empty), and a dist call leaves ``jax`` and ``sblas``
+  out of ``sys.modules``.
 """
 
 import json
@@ -79,9 +79,25 @@ def test_weak_scaling(tmp_path, plan):
 
 
 @pytest.mark.parametrize("plan", ["sptrsv", "sptrsm"])
-def test_weak_scaling_refuses_the_triangular_solves(plan):
-    with pytest.raises(NotImplementedError, match="NOT_PORTED"):
-        weak_scaling.main(["--device", "cpu", "--plan", plan])
+def test_weak_scaling_refuses_the_triangular_solves(tmp_path, plan):
+    # the triangular solves run, and their records carry the reference's
+    # keys (benchmarks/weak_scaling.py:91-135)
+    out = tmp_path / "weak.jsonl"
+    assert weak_scaling.main(["--device", "cpu", "--chips", "1,2", "--plan",
+                              plan, "--rows-per-chip", "300", "--nrhs", "3",
+                              "--out", str(out)]) == 0
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [r["chips"] for r in recs] == [1, 2]
+    for r in recs:
+        assert {"rel_err", "nlevels", "nbatches", "stream_bytes_per_chip",
+                "collective_bytes", "collective_vs_model", "backend",
+                "correctness_only"} <= set(r)
+        assert r["correctness_only"] is True and r["backend"] == "gloo"
+        assert r["rel_err"] < 2e-4
+        assert r["routes"] == ["syncfree"] * r["chips"]
+        assert r["nbatches"] >= 1 and r["nlevels"] >= r["nbatches"]
+        assert r.get("nrhs") == (3 if plan == "sptrsm" else None)
+    assert recs[0]["nbatches"] == 1 and recs[1]["nbatches"] > 1
 
 
 def test_dryrun_multichip_gates_every_plan():
@@ -92,10 +108,11 @@ def test_dryrun_multichip_gates_every_plan():
 
 
 def test_exports_are_the_reference_names_but_not_ported():
-    assert set(par.NOT_PORTED) == {"DistSptrsvPlan", "dist_sptrsv",
-                                   "DistSptrsmPlan", "dist_sptrsm"}
-    assert set(par.__all__) | set(par.NOT_PORTED) == set(ref_par.__all__)
-    assert not set(par.__all__) & set(par.NOT_PORTED)
+    # every name of the reference is exported; nothing is left unported
+    assert par.NOT_PORTED == ()
+    assert par.__all__ == ref_par.__all__
+    for name in par.__all__:
+        assert hasattr(par, name), name
 
 
 @pytest.fixture

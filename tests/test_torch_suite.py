@@ -154,6 +154,32 @@ def test_large_stage_goes_through_the_matrix_cache(tmp_path):
     assert len(calls) == 1
 
 
+def test_warm_caches_fills_the_suite_key(tmp_path, capsys):
+    # warm_caches generates a case into the matrix cache; the suite's
+    # large stage then loads it under its own key and generates nothing
+    from sblas_torch.benchmarks import warm_caches
+
+    calls = []
+
+    def gen():
+        calls.append(1)
+        return datasets.random_csr(400, 400, 6, seed=3)
+
+    def never():
+        raise AssertionError("generated again")
+
+    root = tmp_path / "mc"
+    done = warm_caches.warm({"tiny": gen, "other": never}, "tiny", root)
+    assert [d[:2] for d in done] == [("tiny", gen().nnz)]
+    assert (entry_dir(rs.large_key("tiny"), root) / "shape.npy").exists()
+    assert "warm tiny" in capsys.readouterr().out
+    s = _suite(tmp_path)
+    rs.stage_large(s, {"tiny": never}, ks=(8,), root=root)
+    assert _lines(s.out)[-2]["gen_cached"] is True
+    assert len(calls) == 2          # the warm run and the nnz above
+    assert set(warm_caches.ORDER) == set(rs.large_cases(web=True))
+
+
 def test_a_failing_stage_is_recorded_and_the_run_exits_1(tmp_path):
     s = _suite(tmp_path)
     ran = []
