@@ -54,6 +54,14 @@ before it and read just after:
   only), with the solves on ``chol-nd-poisson2d-120`` in f32 and f64 at
   K = 1 and 4, lower and upper, each rank's local route launching its
   kernel and every rank returning the same bits;
+- the port's host library (:func:`host_phase`, ``sblas_torch.native``):
+  the solves' level sweep on ``chol-nd-poisson2d-1000`` and the 1M-row
+  IC(0) factor, both sides, held to the plain loop; the emulated ``pwtk``
+  written to a ``.mtx`` file under ``build/`` and read back through the
+  host parse and the numpy parse (seconds, peak RSS, the same bits); the
+  cold plan seconds of ``SptrsvPlan`` on ``chol-nd-poisson2d-1000`` and of
+  ``solvers.ichol``/``ilu`` at 1M rows (``DistSptrsvPlan``'s, with a
+  cProfile of its build, in phase ``dist``);
 
 checks every result against scipy, and fails where the route the rule
 picked launched no kernel (in f64: no f64 build). It times each kernel
@@ -319,6 +327,26 @@ def _dist_solve(mesh, l, k, lower: bool = True) -> tuple:
         "build_s": build_s, "seconds": time.perf_counter() - t0}
 
 
+def _profile(fn, top: int = 12) -> dict:
+    """``fn()`` under cProfile: its seconds (profiled) and the ``top``
+    functions by their own time, ``file:line(name)``."""
+    import cProfile
+    import os
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    seconds = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return {"seconds": seconds, "tottime_s": {
+        f"{os.path.basename(f)}:{line}({name})": tt
+        for (f, line, name), (_, _, tt, _, _) in rows}}
+
+
 def _dist_rank_solves(mesh, chol) -> dict:
     """The 4-rank dist solves: ``chol`` (chol-nd-poisson2d-120) in f32 and
     f64, K = 1 and 4, lower and upper (its transpose)."""
@@ -480,6 +508,10 @@ def dist_phase(mats: dict, poisson, chol: dict, card: str,
         res[label]["same_bits_as_single"] = k is None
         del plan, x, bd
     del single
+    # where the cold DistSptrsvPlan build goes (build_s above): a second
+    # build under cProfile
+    timing["chol-nd-poisson2d-1000 f64 DistSptrsvPlan build profile"] = \
+        _profile(lambda: par.DistSptrsvPlan(big, mesh))
     emit_fn({"phase": "launches", "path": "dist", **launches})
 
     # outside the launch windows: where a call's time goes on the graph, at
@@ -555,6 +587,117 @@ def dist_phase(mats: dict, poisson, chol: dict, card: str,
     return launches
 
 
+def _csr_sha(a) -> str:
+    h = hashlib.sha256()
+    for arr in (a.indptr, a.indices, a.data):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()[:16]
+
+
+def host_phase(chol, p1m, pwtk, plan_s: dict, card: str, emit_fn,
+               dev="cuda") -> dict:
+    """The port's host library (``sblas_torch.native``) on the run's
+    matrices, in three parts.
+
+    (a) The solves' dependency levels (``levels.level_schedule``, the C++
+    sweep): best of 3 on chol-nd-poisson2d-1000 (``chol``, lower, and its
+    transpose, upper) and on the 1M-row IC(0) factor of ``p1m`` (its
+    ``tril``, factored by ``native.ic0_inplace``, and its transpose), each
+    held to the plain loop (``levels.level_schedule_plain``, timed once).
+
+    (b) ``pwtk`` written once with ``io.write_mtx`` into a fresh directory
+    under ``build/``, then read back as f32 by ``io.read_mtx``, once with
+    the host library's parse and once with the numpy parse, each in a
+    process of its own (``benchmarks.mtx_reader.MtxReader``): its seconds
+    and peak RSS; both must give the bits of ``pwtk``.
+
+    (c) The cold plan seconds: ``SptrsvPlan`` on chol-nd-poisson2d-1000 f64
+    (lower, and upper on its transpose), here, and those of ``plan_s``
+    (``solvers.ichol``/``ilu`` at 1M rows, timed where the run builds
+    them), and where ``solvers.ichol``'s go (a second build under
+    cProfile). ``DistSptrsvPlan``'s are in phase ``dist``."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from sblas_torch import io as mtx_io
+    from sblas_torch import levels, native, solvers
+    from sblas_torch.formats import CSR, csr_transpose, tril
+    from sblas_torch.benchmarks.mtx_reader import MtxReader
+    from sblas_torch.ops.sptrsv import SptrsvPlan
+
+    t0 = time.perf_counter()
+    lo = tril(p1m)
+    vals = lo.data.astype(np.float64)
+    if native.ic0_inplace(lo.indptr, lo.indices, vals) != 0:
+        raise RuntimeError("host: IC(0) of poisson2d(1000) broke down")
+    ic = CSR(lo.shape, lo.indptr, lo.indices, vals)
+    big = chol["chol-nd-poisson2d-1000"]
+    big_t = csr_transpose(big)
+    sweeps = {}
+    for name, l, lower in (("chol-nd-poisson2d-1000", big, True),
+                           ("chol-nd-poisson2d-1000^T", big_t, False),
+                           ("ic0 poisson2d(1000)", ic, True),
+                           ("ic0 poisson2d(1000)^T", csr_transpose(ic),
+                            False)):
+        n = l.shape[0]
+        best = float("inf")
+        for _ in range(3):
+            t1 = time.perf_counter()
+            got, nl = levels.level_schedule(l.indptr, l.indices, n,
+                                            lower=lower)
+            best = min(best, time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        want, wnl = levels.level_schedule_plain(l.indptr, l.indices, n,
+                                                lower=lower)
+        plain = time.perf_counter() - t1
+        if nl != wnl or not np.array_equal(got, want):
+            raise RuntimeError(f"host: {name}: the sweep's levels differ "
+                               "from the plain loop's")
+        sweeps[name] = {"n": n, "nnz": l.nnz, "lower": lower, "nlevels": nl,
+                        "sweep_s": best, "plain_s": plain,
+                        "equal_to_plain": True}
+    del ic, lo, vals
+
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        path = Path(tmp) / "pwtk.mtx"
+        t1 = time.perf_counter()
+        mtx_io.write_mtx(path, pwtk)
+        write_s = time.perf_counter() - t1
+        reads = {"file_mb": path.stat().st_size / 2**20, "write_s": write_s}
+        with MtxReader() as reader:
+            for parse in ("host", "plain"):
+                reads[parse] = reader.read(path, parse)
+    want = _csr_sha(pwtk)
+    for parse in ("host", "plain"):
+        if reads[parse]["sha256"] != want:
+            raise RuntimeError(f"host: the {parse} read of pwtk.mtx is not "
+                               f"the bits written ({reads[parse]})")
+    reads["same_bits"] = True
+    reads["speedup"] = reads["plain"]["seconds"] / reads["host"]["seconds"]
+
+    dev = torch.device(dev)
+    for label, l, lower in (("SptrsvPlan chol-nd-poisson2d-1000 f64", big,
+                             True),
+                            ("SptrsvPlan chol-nd-poisson2d-1000^T f64",
+                             big_t, False)):
+        t1 = time.perf_counter()
+        plan = SptrsvPlan(l, lower=lower, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        plan_s[label] = time.perf_counter() - t1
+        del plan
+    ichol_profile = _profile(lambda: solvers.ichol(p1m, device=dev))
+    rec = {"levels": sweeps, "mtx": {"matrix": "pwtk (emulated)",
+                                     "shape": list(pwtk.shape),
+                                     "nnz": pwtk.nnz, **reads},
+           "plan_s": plan_s, "ichol_profile": ichol_profile, "card": card,
+           "seconds": time.perf_counter() - t0}
+    emit_fn({"phase": "host", **rec})
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -585,8 +728,9 @@ def main() -> int:
     from sblas_torch.ops.kernels import spmv_csr as kern
     from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmm import _get_plan as spmm_plan
+    from sblas_torch import native
     from sblas_torch.native import BUILD_DIR
-    from sblas_torch.ops.spmv import _get_plan, csr_stream_bytes
+    from sblas_torch.ops.spmv import SpmvPlan, _get_plan, csr_stream_bytes
     from sblas_torch.ops.sptrsv import get_plan as sptrsv_plan
     from sblas_torch.retile_bsr import pack_bsr
     from sblas_torch.utils.backend import probe
@@ -648,6 +792,9 @@ def main() -> int:
     graph_scales = {"uk-2002@0.05": 0.05, "twitter7@0.02": 0.02}
     with ThreadPoolExecutor(max_workers=4) as pool:
         jobs = {"build": pool.submit(timed, _build.build),
+                "host_build": pool.submit(timed, native.build),
+                "pwtk": pool.submit(timed, datasets.emulate, "pwtk",
+                                    dtype=np.float32),
                 "fem": pool.submit(timed, datasets.random_csr, 1_000_000,
                                    1_000_000, 112, bandwidth=1500, seed=7,
                                    dtype=np.float32)}
@@ -669,10 +816,14 @@ def main() -> int:
         done = {name: job.result() for name, job in jobs.items()}
     lib, build_s = done.pop("build")
     _build.load()
+    host_lib, host_build_s = done.pop("host_build")
+    native.load()
+    pwtk, pwtk_gen_s = done.pop("pwtk")
     log = lib.with_suffix(".log")
     emit({"phase": "build", "seconds": build_s,
           "with_generation_s": time.perf_counter() - t0,
-          "library": lib.name,
+          "library": lib.name, "host_library": host_lib.name,
+          "host_build_s": host_build_s,
           "ptxas": _build.ptxas_report(log.read_text() if log.exists()
                                        else "")})
 
@@ -1869,7 +2020,11 @@ def main() -> int:
     # stage times the other solvers, those orders and the factorizations
     # ------------------------------------------------------------------------
     p1m = grid[np.float64]
+    plan_s = {}
+    t0 = time.perf_counter()
     m_ic = solvers.ichol(p1m)
+    torch.cuda.synchronize()
+    plan_s["solvers.ichol poisson2d(1000)"] = time.perf_counter() - t0
     row = bench_solver(solvers.cg, p1m, b1m, M=m_ic, tol=0.0, maxiter=30)
     agree = abs(row["rel_residual"] - row["true_rel_residual"]) / \
         row["true_rel_residual"]
@@ -1881,7 +2036,11 @@ def main() -> int:
           "matrix": "poisson2d(1000)", **row})
     t0 = time.perf_counter()
     c1m = datasets.convection_diffusion(1000, dtype=np.float64)
+    t1 = time.perf_counter()
     m_ilu = solvers.ilu(c1m)
+    torch.cuda.synchronize()
+    plan_s["solvers.ilu convection_diffusion(1000)"] = \
+        time.perf_counter() - t1
     res = {}
     for label, solve, kw in (("ilu0-bicgstab", solvers.bicgstab, {}),
                              ("ilu0-gmres(30)", solvers.gmres,
@@ -1918,6 +2077,40 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     del m_ic, m_ilu, c1m, b0, got, level, op
 
+    # 7d. the host library: the level sweep against the plain loop, the
+    # .mtx read of pwtk through both parses, the cold plan seconds; see
+    # host_phase -----------------------------------------------------------
+    host_phase(factors64, p1m, pwtk, plan_s, card, emit, dev)
+    del pwtk
+
+    # 7e. the plain torch routes that sum a row's parts through gathers in
+    # one fixed order (SpMV coo, SpMM bucket with rows split across
+    # slots): 20 calls give the same bits, and scipy's result within the
+    # f32 tolerance, on uk-2002@0.05 ------------------------------------
+    t0 = time.perf_counter()
+    uk = graphs["uk-2002@0.05"]
+    xs, xk = vec(uk.shape[1]), vec(uk.shape[1], 8)
+    fixed = {}
+    for label, plan, x in (
+            ("spmv coo", SpmvPlan(uk, "coo", device=dev), xs),
+            ("spmm bucket K=8, max_width=256",
+             SpmmPlan(uk, "bucket", max_width=256, device=dev), xk)):
+        xd = on_card(x)
+        first = plan(xd)
+        same = all(torch.equal(plan(xd), first) for _ in range(19))
+        err = rel_err(first.cpu().numpy(), spmv_golden(uk, x))
+        if not same or not err < f32_tol:
+            raise RuntimeError(f"{label} on uk-2002@0.05: same bits over 20 "
+                               f"calls {same}, rel_err {err}")
+        fixed[label] = {"same_bits_20_calls": True, "rel_err": err}
+        if label.startswith("spmm"):
+            fixed[label]["split_rows"] = int(plan._split_rows.numel())
+            if not fixed[label]["split_rows"]:
+                raise RuntimeError(f"{label}: no row split across slots")
+        del plan, xd, first
+    emit({"phase": "fixed_order_sums", "matrix": "uk-2002@0.05",
+          "checks": fixed, "seconds": time.perf_counter() - t0})
+
     # 8. lanes-per-row sweep: every width the csr kernel takes, on cant in
     # f32, bf16 and f64 and on the FEM band in f64 (an earlier f32 sweep of
     # the band found G = 8 fastest there too), each width checked against
@@ -1944,7 +2137,7 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "suite_generate_s": suite_gen_s, "fem_generate_s": fem_gen_s,
           "graph_generate_s": graph_gen_s, "relabel_s": relabel_s,
-          "factor_generate_s": factor_gen_s,
+          "factor_generate_s": factor_gen_s, "pwtk_generate_s": pwtk_gen_s,
           "solve_golden_s": solve_golden_s,
           "solver_generate_s": solver_gen_s})
     main = spmm_timings[("consph", 8, 128)]

@@ -2,10 +2,14 @@
 
 ``coordinate`` and dense ``array`` formats; real, integer, pattern and
 complex fields; general, symmetric, skew-symmetric and hermitian symmetry;
-1-based indices; ``%`` comments; ``.gz`` files. The body is parsed with
-numpy only. The JAX package's reader hands the real-coordinate body to a
-C++ helper built on first import; the port keeps the numpy parse, which
-gives the same arrays, and builds no host helper.
+1-based indices; ``%`` comments; ``.gz`` files. The file is read in
+binary: the header lines are decoded, the body stays bytes. A coordinate
+body of a ``real``, ``integer`` or ``pattern`` field goes to the port's
+host library (:func:`sblas_torch.native.parse_mtx_body`, ``hostsrc/mtx.cpp``,
+the copy of the JAX package's native parse): without ``g++`` it raises.
+``complex`` bodies and ``array`` files take the numpy parse;
+:func:`parse_coordinate_plain` is the plain version the tests hold the
+host parse to.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Union
 
 import numpy as np
 
+from . import native
 from .formats import COO, CSR, coo_to_csr
 
 _FIELDS = {"real", "integer", "pattern", "double", "complex"}
@@ -25,8 +30,12 @@ _SYMMETRIES = {"general", "symmetric", "skew-symmetric", "hermitian"}
 def _open(path: Union[str, Path]):
     path = Path(path)
     if path.suffix == ".gz":
-        return gzip.open(path, "rt")
-    return open(path, "r")
+        return gzip.open(path, "rb")
+    return open(path, "rb")
+
+
+def _line(f) -> str:
+    return f.readline().decode("utf-8", "replace")
 
 
 def _resolve_dtype(field: str, dtype):
@@ -38,7 +47,7 @@ def _resolve_dtype(field: str, dtype):
 
 
 def _read_header(f, path):
-    header = f.readline().strip().lower().split()
+    header = _line(f).strip().lower().split()
     if len(header) < 5 or header[0] != "%%matrixmarket" or header[1] != "matrix":
         raise ValueError(f"not a MatrixMarket matrix file: {path}")
     fmt, field, symmetry = header[2], header[3], header[4]
@@ -50,15 +59,27 @@ def _read_header(f, path):
         raise ValueError(f"unsupported symmetry {symmetry!r}")
     if fmt == "array" and field == "pattern":
         raise ValueError("pattern field is invalid for array format")
-    line = f.readline()
+    line = _line(f)
     while line.startswith("%") or not line.strip():
-        line = f.readline()
+        line = _line(f)
     sizes = [int(t) for t in line.split()]
     return fmt, field, symmetry, sizes
 
 
-def _parse_coordinate(body, nnz, field, dtype):
-    """Parse a coordinate body -> (row, col, data), 0-based."""
+def parse_coordinate(body: bytes, nnz, field, dtype):
+    """Parse a coordinate body -> (row, col, data), 0-based: the host
+    library's parse, or for a ``complex`` field the numpy one."""
+    if field == "complex":
+        return parse_coordinate_plain(body, nnz, field, dtype)
+    pattern = field == "pattern"
+    row, col, vals = native.parse_mtx_body(body, nnz, not pattern)
+    data = np.ones(nnz, dtype=dtype) if pattern else \
+        vals.astype(dtype, copy=False)
+    return row, col, data
+
+
+def parse_coordinate_plain(body, nnz, field, dtype):
+    """:func:`parse_coordinate` in numpy (``body`` bytes or str)."""
     ncols = {"pattern": 2, "complex": 4}.get(field, 3)
     toks = np.array(body.split(), dtype=np.float64)
     if len(toks) < nnz * ncols:
@@ -135,13 +156,14 @@ def read_mtx_coo(path: Union[str, Path], dtype=np.float64) -> COO:
 
     if fmt == "array":
         m, n = sizes[0], sizes[1]
-        dense = _parse_array(body, m, n, field, symmetry, dtype)
+        dense = _parse_array(body.decode(), m, n, field, symmetry, dtype)
         row, col = np.nonzero(dense)
         return COO((m, n), row.astype(np.int64), col.astype(np.int64),
                    dense[row, col])
 
     m, n, nnz = sizes[0], sizes[1], sizes[2]
-    row, col, data = _parse_coordinate(body, nnz, field, dtype)
+    row, col, data = parse_coordinate(body, nnz, field, dtype)
+    del body
     # out-of-range indices fail loudly instead of wrapping in a gather
     if nnz and (row.min(initial=0) < 0 or col.min(initial=0) < 0
                 or row.max(initial=-1) >= m or col.max(initial=-1) >= n):

@@ -3,15 +3,22 @@
 Row ``i`` of a lower-triangular ``L`` depends on every row ``j < i`` with a
 stored entry ``L[i, j]`` (upper: ``j > i``); its level is one more than the
 highest level among those rows, 0 when it has none. Entries on the diagonal
-and on the other side of it are ignored. The JAX package computes the same
-levels with a serial native sweep (``sblas/native.py:level_schedule``).
+and on the other side of it are ignored.
 
-:func:`level_schedule` works level by level (Kahn's order): the in-degree of
-each row in the strict part, the strict part's transpose (who depends on
-each row), then one numpy pass per level that releases the rows whose last
-dependency it holds. That is O(nnz + depth) work, where relaxing all rows
-to a fixpoint would be O(depth * nnz): hours on a factor of 50M nonzeros
-and ~3,000 levels.
+:func:`level_schedule`, what every plan calls, is one serial sweep over the
+rows in dependency order in the port's host library
+(:func:`sblas_torch.native.level_sweep`, ``hostsrc/levels.cpp``, the copy
+of the JAX package's ``sblas/native.py:level_schedule``): O(n + nnz). It
+has no numpy fallback: without ``g++`` it raises.
+
+:func:`level_schedule_plain` is its plain version, the one the tests hold
+it to: level by level (Kahn's order), the in-degree of each row in the
+strict part, the strict part's transpose (who depends on each row), then
+one numpy pass per level that releases the rows whose last dependency it
+holds. Each pass touches only the level's rows and their dependents, so
+the whole is O(nnz + depth) numpy work, where relaxing all rows to a
+fixpoint would be O(depth * nnz); each pass's fixed numpy cost still
+leaves it well behind the sweep on a factor of thousands of levels.
 """
 
 from __future__ import annotations
@@ -19,12 +26,21 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .native import level_sweep
+
 
 def level_schedule(indptr: np.ndarray, indices: np.ndarray, n: int, *,
                    lower: bool = True) -> tuple[np.ndarray, int]:
     """``(levels[n] int32, nlevels)`` of the ``n x n`` triangular matrix with
-    CSR pattern ``indptr``/``indices``. Duplicate entries count once per
-    copy on both sides, so they change nothing."""
+    CSR pattern ``indptr``/``indices``, from the host library's sweep.
+    Duplicate entries change nothing."""
+    return level_sweep(indptr, indices, n, lower=lower)
+
+
+def level_schedule_plain(indptr: np.ndarray, indices: np.ndarray, n: int,
+                         *, lower: bool = True) -> tuple[np.ndarray, int]:
+    """:func:`level_schedule` in numpy, Kahn's order. Duplicate entries
+    count once per copy on both sides, so they change nothing."""
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int32)
     rows = np.repeat(np.arange(n, dtype=np.int32), np.diff(indptr))
@@ -36,13 +52,14 @@ def level_schedule(indptr: np.ndarray, indices: np.ndarray, n: int, *,
                        np.concatenate([[0], np.cumsum(indeg)])),
                       shape=(n, n)).tocsc()
     tptr, tind = t.indptr.astype(np.int64), t.indices
+    tlen = np.diff(tptr)
     levels = np.full(n, -1, dtype=np.int32)
     frontier = np.flatnonzero(indeg == 0)
     nlevels = 0
     while frontier.size:
         levels[frontier] = nlevels
         nlevels += 1
-        starts, lens = tptr[frontier], np.diff(tptr)[frontier]
+        starts, lens = tptr[frontier], tlen[frontier]
         total = int(lens.sum())
         if total == 0:
             break

@@ -1,6 +1,11 @@
 """Generated matrices, kept on disk between runs: the port of
-``sblas/plan_cache.py:cached_matrix`` (the layout bundles of that module are
-not ported: the port's plans pack nothing worth keeping).
+``sblas/plan_cache.py:cached_matrix``. The layout bundles of that module
+are not ported: the port's plans pack no TPU layout, and built cold they
+take about a second at 1M rows (``SptrsvPlan`` on a 50.2M-nonzero
+Cholesky factor 0.64-0.86 s, ``solvers.ichol`` on ``poisson2d(1000)``
+with its two solve plans 1.01-1.20 s, on the host of an H100 machine;
+PERF.md §6, ``chip_smoke.py`` phase ``host``), where generating the
+matrix takes tens of seconds.
 
     a = cached_matrix("suite-large-fem-band-1M-112M", generate)
 

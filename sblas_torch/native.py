@@ -1,19 +1,26 @@
-"""The port's host library: incomplete factorizations in C++, through ctypes.
+"""The port's host library: its serial host passes in C++, through ctypes.
 
-``sblas_torch/hostsrc/factor.cpp`` compiles at first use with
+The port's own copies of the JAX package's native helpers, one file a
+pass under ``sblas_torch/hostsrc/``: the incomplete factorizations
+(``factor.cpp``: IC(0), ILU(0) in f64), the solves' dependency levels
+(``levels.cpp``: one O(nnz) sweep) and the MatrixMarket coordinate parse
+(``mtx.cpp``). Every ``hostsrc/*.cpp`` compiles at first use into one
+library,
 
     g++ -O3 -march=native -shared -fPIC
-        -o build/sblas_torch/libsblas_torch_host_<h>.so factor.cpp
+        -o build/sblas_torch/libsblas_torch_host_<h>.so hostsrc/*.cpp
 
 (``-march=native`` as the JAX package builds its own copy, so that both
-round alike), where ``<h>`` hashes the source, the flags and
+round alike), where ``<h>`` hashes the sources, the flags and
 :func:`host_tag`, what ``-march=native`` resolves to on this host (``g++
--march=native -Q --help=target``): a library built from another source,
+-march=native -Q --help=target``): a library built from other sources,
 or for another CPU or compiler, is never loaded, so a ``build/`` copied
 from one machine to another rebuilds. A missing ``g++`` or a failed
 build raises ``RuntimeError`` with the compiler's output; there is no numpy
-fallback on this path (the numpy versions in :mod:`sblas_torch.solvers` are
-the plain versions the tests hold the library to).
+fallback on this path (the numpy versions in :mod:`sblas_torch.solvers`,
+:func:`sblas_torch.levels.level_schedule_plain` and
+:func:`sblas_torch.io.parse_coordinate_plain` are the plain versions the
+tests hold the library to).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "hostsrc" / "factor.cpp"
+HOSTSRC = Path(__file__).resolve().parent / "hostsrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "sblas_torch"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
@@ -39,8 +46,9 @@ _LIB: ctypes.CDLL | None = None
 def _cxx() -> str:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found on PATH: the host factorizations "
-                           "of sblas_torch cannot be built")
+        raise RuntimeError("g++ not found on PATH: the host library of "
+                           "sblas_torch (factorizations, levels, .mtx "
+                           "parse) cannot be built")
     return cxx
 
 
@@ -57,18 +65,28 @@ def host_tag() -> str:
     return "\n".join(out)
 
 
-def library_path(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
-    """Where the library built from ``src`` lives: keyed on a hash of the
-    source, the flags and :func:`host_tag`."""
+def sources() -> list[Path]:
+    """The host library's sources: every ``hostsrc/*.cpp``."""
+    return sorted(HOSTSRC.glob("*.cpp"))
+
+
+def library_path(srcs=None, out_dir: Path = BUILD_DIR) -> Path:
+    """Where the library built from ``srcs`` (default :func:`sources`)
+    lives: keyed on a hash of each source's name and text, the flags and
+    :func:`host_tag`."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(src.read_bytes())
+    for src in sources() if srcs is None else srcs:
+        h.update(Path(src).name.encode() + b"\0")
+        h.update(Path(src).read_bytes())
     h.update(host_tag().encode())
     return out_dir / f"libsblas_torch_host_{h.hexdigest()[:16]}.so"
 
 
-def build(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``src`` unless the library for it exists; return its path."""
-    lib = library_path(src, out_dir)
+def build(srcs=None, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``srcs`` (default :func:`sources`) into one library unless
+    it exists; return its path."""
+    srcs = sources() if srcs is None else [Path(s) for s in srcs]
+    lib = library_path(srcs, out_dir)
     if lib.exists():
         return lib
     cxx = _cxx()
@@ -77,11 +95,13 @@ def build(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
     # never sees a half-written library
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         so = Path(tmp) / lib.name
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(so), str(src)],
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(so),
+                               *map(str, srcs)],
                               capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
+            names = ", ".join(src.name for src in srcs)
             raise RuntimeError(f"g++ failed (exit {proc.returncode}) "
-                               f"compiling {src.name}:\n{proc.stderr}"
+                               f"compiling {names}:\n{proc.stderr}"
                                f"{proc.stdout}")
         os.replace(so, lib)
     return lib
@@ -93,10 +113,19 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
         f64p = ctypes.POINTER(ctypes.c_double)
         for fn in (lib.sblas_ic0_f64, lib.sblas_ilu0_f64):
             fn.restype = ctypes.c_int64
             fn.argtypes = [i32p, i32p, f64p, ctypes.c_int64]
+        for fn in (lib.sblas_torch_levels_lower,
+                   lib.sblas_torch_levels_upper):
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [i32p, i32p, ctypes.c_int64, i32p]
+        fn = lib.sblas_torch_parse_mtx_body
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int32, i64p, i64p, f64p]
         _LIB = lib
     return _LIB
 
@@ -126,3 +155,51 @@ def ilu0_inplace(indptr, indices, data64: np.ndarray) -> int:
     ``data64``: L unit-lower and U upper. Returns 0, or i+1 on a zero pivot
     or a missing diagonal at row i."""
     return _factor(load().sblas_ilu0_f64, indptr, indices, data64)
+
+
+def level_sweep(indptr, indices, n: int, *,
+                lower: bool = True) -> tuple[np.ndarray, int]:
+    """``(levels[n] int32, nlevels)`` of the ``n x n`` triangular CSR
+    pattern: one serial sweep over the rows in dependency order (forward
+    for ``lower``, backward else), O(n + nnz)."""
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    if len(indptr) != n + 1:
+        raise ValueError(f"indptr has {len(indptr)} entries for n = {n}")
+    # the sweep reads indices[indptr[i]:indptr[i + 1]] unchecked
+    if indptr[0] != 0 or indptr[-1] > len(indices) or \
+            (np.diff(indptr) < 0).any():
+        raise ValueError("indptr must rise from 0 to at most "
+                         f"len(indices) = {len(indices)}")
+    lib = load()
+    fn = lib.sblas_torch_levels_lower if lower else \
+        lib.sblas_torch_levels_upper
+    levels = np.zeros(n, dtype=np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    nlevels = fn(indptr.ctypes.data_as(i32p), indices.ctypes.data_as(i32p),
+                 n, levels.ctypes.data_as(i32p))
+    if nlevels < 0:
+        raise ValueError(f"a column index outside [0, {n}) on the strict "
+                         "side of the diagonal")
+    return levels, int(nlevels)
+
+
+def parse_mtx_body(body: bytes, nnz: int, has_value: bool):
+    """``(rows int64, cols int64, vals f64)`` of the first ``nnz`` entries
+    of a MatrixMarket coordinate body, 0-based (values 1.0 without
+    ``has_value``). A body with fewer entries, or a token that is not a
+    number, raises ``ValueError``."""
+    if not isinstance(body, bytes):
+        raise TypeError("the body must be bytes (NUL-terminated)")
+    rows = np.empty(nnz, dtype=np.int64)
+    cols = np.empty(nnz, dtype=np.int64)
+    vals = np.empty(nnz, dtype=np.float64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    got = load().sblas_torch_parse_mtx_body(
+        body, len(body), nnz, int(has_value), rows.ctypes.data_as(i64p),
+        cols.ctypes.data_as(i64p),
+        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if got != nnz:
+        raise ValueError(f"malformed .mtx body: parsed {got} of {nnz} "
+                         "entries")
+    return rows, cols, vals

@@ -69,7 +69,7 @@ from ..utils.backend import default_device
 from .kernels import spmm_csr
 from .kernels.spmm_bsr import (BLOCK_COLS, BLOCK_ROWS, bsr_to_device, prepare,
                                spmm_bsr, spmm_bsr_reference)
-from .spmv import (_PLAN_CACHE, SpmvPlan, csr_bytes_per_iter,
+from .spmv import (_PLAN_CACHE, SpmvPlan, bucket_slots, csr_bytes_per_iter,
                    csr_stream_bytes)
 from .spmv import xla_heuristic as spmv_xla_heuristic
 
@@ -204,7 +204,8 @@ class SpmmPlan:
             be = to_bucket_ell(a, max_width=max_width)
             self._buckets = [(self._up(b.val), self._up(b.col))
                              for b in be.buckets]
-            self._perm = self._up(be.perm).long()
+            self._row_slot, self._split_rows, self._split_slots = map(
+                self._up, bucket_slots(be.perm, m))
             self.fill = be.fill
             self._stream = sum(
                 b.col.size for b in be.buckets) * (a.data.itemsize + 4)
@@ -362,12 +363,12 @@ class SpmmPlan:
             return torch.stack(cols, dim=1)
         if self.method == "ell":
             out = self._ell(self._val, self._col, x)[:m]
-        else:  # bucket
-            flat = torch.cat([self._ell(val, col, x)
-                              for val, col in self._buckets])
-            out = torch.zeros((m + 1, k), dtype=flat.dtype,
-                              device=self.device)
-            out = out.index_add_(0, self._perm, flat)[:m]
+        else:  # bucket: gathers, no atomics (see spmv.bucket_slots)
+            parts = [self._ell(val, col, x) for val, col in self._buckets]
+            flat = torch.cat(parts + [x.new_zeros((1, k))])
+            out = flat[self._row_slot]
+            if self._split_rows.numel():
+                out[self._split_rows] = flat[self._split_slots].sum(dim=1)
         out = alpha * out
         if y is not None:
             out = out + beta * y

@@ -238,10 +238,26 @@ class SpmvPlan:
             self.bytes_per_iter = csr_bytes_per_iter(
                 m, n, a.nnz, vd.itemsize, self.dtype.itemsize)
         elif method == "coo":
+            # each row's products in stored order, gathered by the
+            # uncapped bucket layout's rows (one slot a row): lane j of a
+            # row is entry indptr[row] + j, a padded lane the zero after
+            # the products
             self._vals = self._up(a.data)
             self._cols = self._up(a.indices)
-            self._rows = self._up(a.row_ids())
-            self.bytes_per_iter = a.nnz * (val_bytes + 8)
+            be = to_bucket_ell(a)
+            self._row_slot = self._up(bucket_slots(be.perm, m)[0])
+            ends = np.append(a.indptr, a.nnz).astype(np.int64)
+            tables, lo = [], 0
+            for b in be.buckets:
+                rows = be.perm[lo:lo + b.col.shape[0]].astype(np.int64)
+                lo += b.col.shape[0]
+                t = ends[rows, None] + np.arange(b.width)
+                t[t >= ends[rows + 1, None]] = a.nnz
+                tables.append(t)
+            self._tables = [self._up(t) for t in tables]
+            # values and columns once, the int64 tables with their padding
+            self.bytes_per_iter = a.nnz * (val_bytes + 4) + 8 * sum(
+                t.size for t in tables)
         elif method == "ell":
             ell = to_ell(a)
             self._val, self._col = self._up(ell.val), self._up(ell.col)
@@ -311,9 +327,11 @@ class SpmvPlan:
                 self._op, x.index_select(0, perm), alpha, beta,
                 None if y is None else y.index_select(0, perm))
             return out.index_select(0, inv)
-        if self.method == "coo":
-            out = torch.zeros(m, dtype=self.dtype, device=self.device)
-            out.index_add_(0, self._rows, self._vals * x[self._cols])
+        if self.method == "coo":      # gathers, no atomics (see bucket_slots)
+            zero = x.new_zeros(1)
+            prods = torch.cat([self._vals * x[self._cols], zero])
+            out = torch.cat([prods[t].sum(dim=1) for t in self._tables]
+                            + [zero])[self._row_slot]
         elif self.method == "ell":
             out = (self._val * x[self._col]).sum(dim=1)[:m]
         else:  # bucket: gathers, no atomics (see bucket_slots)

@@ -1,5 +1,6 @@
 """The builds: nvcc's route for the kernels and g++'s for the host
-factorizations, each keyed on its sources, never a fallback."""
+library (factorizations, levels, .mtx parse), each keyed on its sources,
+never a fallback."""
 
 import os
 import shutil
@@ -121,29 +122,39 @@ def test_build_dir_is_git_ignored():
 def test_host_library_builds_into_build_keyed_on_its_source(tmp_path):
     root = Path(__file__).resolve().parents[1]
     assert native.BUILD_DIR == root / "build" / "sblas_torch"
-    assert native.SRC.parent.name == "hostsrc"       # not globbed by nvcc
-    assert native.SRC not in _build.sources()
-    src = tmp_path / "factor.cpp"
-    shutil.copy(native.SRC, src)
+    assert native.HOSTSRC.name == "hostsrc"          # not globbed by nvcc
+    srcs = native.sources()
+    assert {s.name for s in srcs} >= {"factor.cpp", "levels.cpp", "mtx.cpp"}
+    assert not set(srcs) & set(_build.sources())
+    copies = [tmp_path / s.name for s in srcs]
+    for s, c in zip(srcs, copies):
+        shutil.copy(s, c)
     out = tmp_path / "out"
-    lib = native.build(src, out)
-    assert lib == native.library_path(src, out) and lib.exists()
+    lib = native.build(copies, out)
+    assert lib == native.library_path(copies, out) and lib.exists()
     assert lib.parent == out and lib.name.startswith("libsblas_torch_host_")
-    assert native.build(src, out) == lib              # reused, not rebuilt
-    src.write_text(src.read_text() + "\n// edited\n")
-    assert native.library_path(src, out) != lib
-    # the library the package loads is the repository's own
+    assert native.build(copies, out) == lib          # reused, not rebuilt
+    # every source is in the key: editing any one of them moves it
+    for c in copies:
+        text = c.read_text()
+        c.write_text(text + "\n// edited\n")
+        assert native.library_path(copies, out) != lib, c.name
+        c.write_text(text)
+    assert native.library_path(copies, out) == lib
+    # the library the package loads is the repository's own, built from
+    # every hostsrc/*.cpp
     assert native.library_path() == native.BUILD_DIR / native.library_path(
-        native.SRC, native.BUILD_DIR).name
+        srcs, native.BUILD_DIR).name
 
 
 def test_broken_host_source_raises_with_the_compilers_output(tmp_path):
     src = tmp_path / "factor.cpp"
-    src.write_text(native.SRC.read_text().replace(
+    src.write_text((native.HOSTSRC / "factor.cpp").read_text().replace(
         "return 0;\n}", "return 0 undeclared_name_in_factor;\n}", 1))
     out = tmp_path / "out"
     with pytest.raises(RuntimeError, match="g\\+\\+ failed") as err:
-        native.build(src, out)
+        native.build([src, *(s for s in native.sources()
+                             if s.name != src.name)], out)
     assert "undeclared_name_in_factor" in str(err.value)
     assert not list(out.glob("*.so"))
 
@@ -151,7 +162,7 @@ def test_broken_host_source_raises_with_the_compilers_output(tmp_path):
 def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
     _no_nvcc(monkeypatch, tmp_path)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
-        native.build(native.SRC, tmp_path / "out")
+        native.build(native.sources(), tmp_path / "out")
 
 
 def test_every_compiled_source_is_package_data():
@@ -163,10 +174,10 @@ def test_every_compiled_source_is_package_data():
     root = Path(__file__).resolve().parents[1]
     conf = tomllib.loads((root / "pyproject.toml").read_text())
     globs = conf["tool"]["setuptools"]["package-data"]["sblas_torch"]
-    pkg = native.SRC.parents[1]
-    compiled = [*_build.sources(), *_build.CSRC.glob("*.cuh"), native.SRC,
-                *native.SRC.parent.glob("*.cpp")]
-    assert native.SRC in compiled and _build.sources()
+    pkg = native.HOSTSRC.parent
+    compiled = [*_build.sources(), *_build.CSRC.glob("*.cuh"),
+                *native.sources(), *native.HOSTSRC.glob("*.cpp")]
+    assert len(native.sources()) >= 3 and _build.sources()
     for src in compiled:
         rel = src.relative_to(pkg)
         assert any(rel.match(g) for g in globs), f"{rel} is not packaged"

@@ -770,6 +770,40 @@ def test_dist_sptrsv_world_of_one_on_card(cuda, dtype):
         dist.destroy_process_group()
 
 
+def _repeats(call, times: int = 20) -> None:
+    first = call()
+    torch.cuda.synchronize()
+    for _ in range(times - 1):
+        assert torch.equal(call(), first)
+
+
+@pytest.mark.cuda
+def test_spmm_bucket_repeats_bit_for_bit(cuda):
+    # rows longer than max_width split into slots that add through gathers
+    # in one fixed order: the same bits on every call, where a scatter-add
+    # adds them in the order its atomics land
+    a = datasets.powerlaw_graph(20000, 10.0, seed=3)
+    assert np.diff(a.indptr).max() > 64
+    plan = sblas_torch.SpmmPlan(a, "bucket", max_width=64, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (a.shape[1], 8)).astype(np.float32)).to(cuda)
+    _repeats(lambda: plan(x))
+    assert rel_err(plan(x).cpu().numpy(),
+                   spmm_golden(a, x.cpu().numpy())) < 2e-5
+
+
+@pytest.mark.cuda
+def test_spmv_coo_repeats_bit_for_bit(cuda):
+    # each row's products add through a gather of its stored entries in one
+    # fixed order: the same bits on every call
+    a = datasets.powerlaw_graph(20000, 10.0, seed=3)
+    plan = sblas_torch.SpmvPlan(a, "coo", device=cuda)
+    x = torch.from_numpy(_vec(a.shape[1], 1)).to(cuda)
+    _repeats(lambda: plan(x))
+    assert rel_err(plan(x).cpu().numpy(),
+                   spmv_golden(a, x.cpu().numpy())) < 2e-5
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     # alone in a directory, or on a machine where torch sees no card, the
     # smoke run exits non-zero and prints no result line

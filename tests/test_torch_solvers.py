@@ -237,18 +237,18 @@ def test_host_library_is_keyed_on_the_host_cpu(tmp_path, monkeypatch):
     src.write_text("int x;\n")
     tag = native.host_tag()
     assert "-march=" in tag
-    here = native.library_path(src, tmp_path)
+    here = native.library_path([src], tmp_path)
     # the loaded library is the one keyed on this host
     assert native.build() == native.library_path()
     paths = {}
     for name, other in (("another", tag.replace("-march=", "-march=another-", 1)),
                         ("cpu a", "cpu a"), ("cpu b", "cpu b")):
         monkeypatch.setattr(native, "host_tag", lambda other=other: other)
-        paths[name] = native.library_path(src, tmp_path)
+        paths[name] = native.library_path([src], tmp_path)
     assert paths["another"] != here and paths["another"].parent == here.parent
     assert paths["cpu a"] != paths["cpu b"]
     monkeypatch.setattr(native, "host_tag", lambda: tag)
-    assert native.library_path(src, tmp_path) == here
+    assert native.library_path([src], tmp_path) == here
 
 
 def test_shift_rescue_and_errors_match_the_reference():

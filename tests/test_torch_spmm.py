@@ -176,6 +176,37 @@ def test_routes_vs_reference(method, name, dtype):
 
 # (c) auto's picks ---------------------------------------------------------
 
+@pytest.mark.parametrize("max_width", [8, 24])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bucket_split_rows_add_by_gathers(monkeypatch, max_width, dtype):
+    # rows longer than max_width are split into slots; the route adds a
+    # row's partial sums through gathers in one fixed order (SpMV's
+    # bucket_slots), never through a scatter-add (whose atomics on the card
+    # add them in a new order each call), and agrees with the reference's
+    # split rows
+    a = datasets.powerlaw_graph(600, 10.0, seed=3, dtype=dtype)
+    x = _dense((a.shape[1], 5), 7, dtype)
+    y0 = _dense((a.shape[0], 5), 8, dtype)
+    plan = SpmmPlan(_p(a), "bucket", max_width=max_width, device="cpu")
+    lengths = np.diff(a.indptr)
+    split = plan._split_rows.numpy()
+    np.testing.assert_array_equal(split, np.flatnonzero(lengths > max_width))
+    table = plan._split_slots.numpy()
+    zero = sum(v.shape[0] for v, _ in plan._buckets)
+    assert ((table < zero).sum(axis=1)
+            == -(-lengths[split] // max_width)).all()
+    assert (plan._row_slot.numpy()[split] == zero).all()
+
+    def scatter(*_a, **_k):
+        raise AssertionError("the bucket route scatter-added")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", scatter)
+    port = _np(plan(x, 2.5, -0.5, y0))
+    ref = RefPlan(a, "bucket", max_width=max_width)(x, 2.5, -0.5, y0)
+    tol = default_tol(dtype)
+    _held(port, ref, spmm_golden(a, x, 2.5, -0.5, y0), tol, tol)
+
+
 def test_auto_picks_block_by_the_bytes_rule():
     a = _cant()
     pa = _p(a)

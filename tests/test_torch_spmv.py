@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from sblas import datasets
-from sblas.formats import csr_transpose
+from sblas.formats import COO, csr_transpose
 from sblas.golden import default_tol, rel_err, spmv_golden
 from sblas.ops.spmv import SpmvPlan as RefPlan
 from sblas.ops.spmv import spmv as ref_spmv
@@ -108,6 +108,46 @@ def test_bucket_split_rows_add_by_gathers(monkeypatch, max_width, dtype):
     port = _np(plan(x, 2.5, -0.5, y0))
     ref = np.asarray(RefPlan(a, "bucket", max_width=max_width)(
         x, 2.5, -0.5, y0))
+    assert rel_err(port, ref) < default_tol(dtype)
+    assert rel_err(port, spmv_golden(a, x, 2.5, -0.5, y0)) < default_tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_coo_sums_each_row_in_stored_order(monkeypatch, dtype):
+    # each row's products add through gathers from a table of its entries
+    # in stored (CSR) order, padded with the zero after the products, in
+    # one fixed order on any device, never through a scatter-add (whose
+    # atomics on the card add them in a new order each call); the tables
+    # are the uncapped bucket layout's rows, one a row; rows of 1 to 300+
+    # entries and empty rows, against the reference's segment_sum
+    a = datasets.powerlaw_graph(600, 10.0, seed=3, dtype=dtype)
+    coo = a.tocoo()
+    keep = (coo.row % 7) != 3                     # empty rows
+    a = COO(a.shape, coo.row[keep], coo.col[keep], coo.data[keep]).tocsr()
+    x = _vec(a.shape[1], 7, dtype)
+    y0 = _vec(a.shape[0], 8, dtype)
+    plan = SpmvPlan(_p(a), "coo", device="cpu")
+    lengths = np.diff(a.indptr)
+    assert lengths.max() > 64 and (lengths == 0).any()
+    slot = plan._row_slot.numpy()
+    table_rows = [r for t in plan._tables for r in t.numpy()]
+    # one table row a matrix row, in the order of the sums
+    assert len(np.unique(slot)) == a.shape[0]
+    for i in range(a.shape[0]):
+        row = table_rows[slot[i]]
+        # the row's entries in stored order, then only padding (the zero
+        # after the products), which at most doubles a row of over 8
+        np.testing.assert_array_equal(
+            row[:lengths[i]], np.arange(a.indptr[i], a.indptr[i + 1]))
+        assert (row[lengths[i]:] == a.nnz).all()
+        assert len(row) <= max(8, 2 * lengths[i] - 1)
+
+    def scatter(*_a, **_k):
+        raise AssertionError("the coo route scatter-added")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", scatter)
+    port = _np(plan(x, 2.5, -0.5, y0))
+    ref = np.asarray(RefPlan(a, "coo")(x, 2.5, -0.5, y0))
     assert rel_err(port, ref) < default_tol(dtype)
     assert rel_err(port, spmv_golden(a, x, 2.5, -0.5, y0)) < default_tol(dtype)
 
