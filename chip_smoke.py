@@ -5,8 +5,9 @@
 
 It builds the port's CUDA kernels from the sources in the checkout and
 holds each against its plain torch version on the card (the f64 builds of
-the csr and solve kernels too; the nnz-balanced kernel's rows and columns
-kernels at K > 1 on the small cases at every K from 1 to 64). It drives the
+the csr, solve and nnz-balanced kernels too; the nnz-balanced kernel's
+rows and columns kernels at K > 1 on the small cases at every K from 1 to
+64, each build). It drives the
 main paths a user calls, each with every kernel launch count set to 0 just
 before it and read just after:
 
@@ -27,8 +28,9 @@ before it and read just after:
   ``band-parallel``;
 - f64 SpMV (BASELINE.json config 1: ``auto`` and ``method="pallas_ds"``,
   ``y = A x / 3 - y / 2``, ``trans``) on ``cant`` and the FEM band, f64
-  SpMM (``auto``) on ``cant`` at K = 8, f64 SpMV and SpMM at K = 8
-  (``auto``: the nnz-balanced kernel's f64 build) on ``uk-2002`` at 5%,
+  SpMM (``auto``) on ``cant`` at K = 4 and 8, f64 SpMV and SpMM at K =
+  4 and 8 (``auto``: the nnz-balanced kernel's f64 build, its rows
+  kernel at K = 4 and its columns kernel at 8) on ``uk-2002`` at 5%,
   and the f64 solves (``auto``: K = 1, 8 and the backsolve) on
   ``band-parallel`` and ``chol-nd-poisson2d-1000``, all on the f64 builds
   of the kernels;
@@ -72,12 +74,16 @@ against each other (``rule_picked``, ``faster_route``), times the SpMV
 csr kernel at every lanes-per-row width it takes (each width checked
 first), times each solve beside its plain version, its bound, its ns
 per level and cuSPARSE's ``triangular_solve``, the block kernel at K = 8
-and 32 at both block heights, the nnz-balanced kernel's rows and columns
-kernels (also at K = 16, where the rule switches) and the columns kernel
-in column-chunk-major order (one launch a half of X's columns) on both
-graphs at K = 8 and 32, and times IC(0)-CG for 30 iterations on the
-1M-row grid: ms per iteration, split into the SpMV, the two triangular
-solves and the rest, with the true residual. The solve kernel takes its
+and 32 at both block heights (and at K = 16, and on ``pwtk`` at K = 8
+and 16, beside the other routes, for the route rule), the nnz-balanced
+kernel's rows and columns kernels (also at K = 16, where the rule
+switches) and the columns kernel in column-chunk-major order (one launch
+a half of X's columns) on both graphs at K = 8 and 32, their f64 builds
+against each other and the ``spmv_passes`` route at K = 2, 4 and 8 on
+both graphs, the suite's ``powerlaw-1M-102M`` (K = 2, 4), ``cant`` and
+``pwtk`` (where the rule's f64 range comes from), and times IC(0)-CG
+for 30 iterations on the 1M-row grid: ms per iteration, split into the
+SpMV, the two triangular solves and the rest, with the true residual. The solve kernel takes its
 tickets level by level, small levels grouped; every factor's solve, the
 1M-row IC(0) and ILU(0) factors' among them, is held bit for bit to the
 same kernel in plain level order and in row order (its earlier ticket
@@ -128,7 +134,8 @@ DIST_TOL = 2e-5
 ROUTE_COUNTERS = {"csr": ("spmv_csr", "spmv_csr_f64"),
                   "block": ("spmm_bsr",),
                   "merge": ("spmm_csr", "spmm_csr_f64", "spmm_csr_rows",
-                            "spmm_csr_cols", "spmm_csr_cols_f64")}
+                            "spmm_csr_rows_f64", "spmm_csr_cols",
+                            "spmm_csr_cols_f64")}
 ROUTE_COUNTERS["pseg"] = ROUTE_COUNTERS["merge"]
 ROUTE_COUNTERS["syncfree"] = ("sptrsv_csr", "sptrsv_csr_f64")
 
@@ -790,6 +797,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     graph_scales = {"uk-2002@0.05": 0.05, "twitter7@0.02": 0.02}
+    # the suite's powerlaw-1M-102M in f64, read only in phase 6c: made in
+    # a thread of its own while the phases before it run
+    late = ThreadPoolExecutor(max_workers=1)
+    powerlaw_job = late.submit(timed, datasets.powerlaw_graph, 1_000_000,
+                               avg_deg=120, seed=7, dtype=np.float64)
     with ThreadPoolExecutor(max_workers=4) as pool:
         jobs = {"build": pool.submit(timed, _build.build),
                 "host_build": pool.submit(timed, native.build),
@@ -978,22 +990,26 @@ def main() -> int:
         f64 = op["data"].dtype == torch.float64
         if k == 1:
             return "spmm_csr_f64" if f64 else "spmm_csr"
-        if ckern.rows_kernel(op, k):
-            return "spmm_csr_rows"
-        return "spmm_csr_cols_f64" if f64 else "spmm_csr_cols"
+        kname = "spmm_csr_rows" if ckern.rows_kernel(op, k) \
+            else "spmm_csr_cols"
+        return kname + "_f64" if f64 else kname
 
     for name, a in csr_cases.items():
         m, n = a.shape
         errs = {}
         # the small cases at every K the kernels take, in both of the K > 1
-        # kernels (the rule's pick and the other)
-        vds, ks = depth.get(name, ((torch.float32, torch.bfloat16),
+        # kernels (the rule's pick and the other), each build
+        vds, ks = depth.get(name, ((torch.float32, torch.bfloat16,
+                                    torch.float64),
                                    (1, 2, 3, 8, 16, 32, 33, 64)))
         for vd in vds:
-            op = ckern.prepare(sblas_torch.to_device(a, dev, vd))
+            f64 = vd == torch.float64
+            op = ckern.prepare(sblas_torch.to_device(
+                a.astype(np.float64) if f64 else a, dev, vd))
             designs = ("rows", "cols") if name not in depth else (None,)
+            mk = vec64 if f64 else vec
             for k in ks:
-                x, y = on_card(vec(n, k)), on_card(vec(m, k))
+                x, y = on_card(mk(n, k)), on_card(mk(m, k))
                 for design in designs:
                     o = op if design is None or k == 1 else {
                         **op, "design": design}
@@ -1003,23 +1019,26 @@ def main() -> int:
                         errs[label] = check_plain(
                             csr_kname(o, k), f"{name} {label}",
                             ckern.spmm_csr(o, x, alpha, beta, yy),
-                            ckern.spmm_csr_reference(o, x, alpha, beta, yy))
+                            ckern.spmm_csr_reference(o, x, alpha, beta, yy),
+                            KERNEL_TOL_F64 if f64 else KERNEL_TOL)
                 del x, y
             shares, fixups = op["part"].shape[0] - 1, op["fix"].numel()
             del op
         emit({"phase": "spmm_csr_vs_plain", "matrix": name, "shape": a.shape,
               "nnz": a.nnz, "longest_row": int(a.row_lengths.max(initial=0)),
               "shares": shares, "fixups": fixups, "tol": KERNEL_TOL,
+              "tol_f64": KERNEL_TOL_F64,
               "max_rel_err": max(errs.values()), "cases": len(errs)})
 
     # the nnz-balanced kernel's f64 build vs its plain version on both
-    # graphs (the f64 values are the f32 ones cast), K = 1 and 8, alpha =
-    # 1/3
+    # graphs (the f64 values are the f32 ones cast), K = 1, 4 (the rows
+    # kernel) and 8 (the columns kernel), alpha = 1/3; at K = 8 the rows
+    # kernel of each build (by name) gives the same bits over 20 calls
     for name, a in graphs.items():
         m, n = a.shape
-        errs = {}
+        errs, bits = {}, {}
         op = ckern.prepare(sblas_torch.to_device(a.astype(np.float64), dev))
-        for k in (1, 8):
+        for k in (1, 4, 8):
             x, y = on_card(vec64(n, k)), on_card(vec64(m, k))
             for alpha, beta, yy in ((1 / 3, -0.5, y), (1.0, 0.0, None)):
                 label = f"float64,K={k},Y={yy is not None}"
@@ -1029,10 +1048,23 @@ def main() -> int:
                     ckern.spmm_csr_reference(op, x, alpha, beta, yy),
                     KERNEL_TOL_F64)
             del x, y
-        del op
+        op32 = ckern.prepare(sblas_torch.to_device(a, dev))
+        for o, mk in (({**op32, "design": "rows"}, vec),
+                      ({**op, "design": "rows"}, vec64)):
+            x, y = on_card(mk(n, 8)), on_card(mk(m, 8))
+            kname = csr_kname(o, 8)
+            got = ckern.spmm_csr(o, x, 1 / 3, -0.5, y)
+            for _ in range(20):
+                if not torch.equal(ckern.spmm_csr(o, x, 1 / 3, -0.5, y), got):
+                    raise RuntimeError(f"{name} {kname} K=8: the product "
+                                       "changed from run to run")
+            bits[kname] = 20
+            del x, y, got
+        del op, op32
         emit({"phase": "spmm_csr_vs_plain", "matrix": name,
               "dtype": "float64", "nnz": a.nnz, "tol": KERNEL_TOL_F64,
-              "max_rel_err": max(errs.values()), "cases": len(errs)})
+              "max_rel_err": max(errs.values()), "cases": len(errs),
+              "repeats_bit_equal_k8": bits})
 
     # 4c. the sync-free solve kernel vs its plain version on the card, on
     # each factor, lower (L) and upper (L^T, the backsolve), K = 1 and 8,
@@ -1079,8 +1111,9 @@ def main() -> int:
 
     # 4d. the nnz-balanced kernel at every share size it takes (merged-path
     # items; the suite's ``sweeps`` stage times each) on both graphs at
-    # K = 1, 8 (the rows kernel) and 32 (the columns kernel) and on
-    # banded(300,5) at K = 1, against its plain version; the solve kernel
+    # K = 1, 8 (the rows kernel), 32 (the columns kernel) and in f64 at
+    # K = 4 (the rows kernel's f64 build), and on banded(300,5) at K = 1,
+    # against its plain version; the solve kernel
     # with small levels grouped up to 512 .. 4,096 rows, the same bits as
     # with the rule's GROUP_ROWS ------------------------------------------
     t0 = time.perf_counter()
@@ -1091,17 +1124,22 @@ def main() -> int:
             ("banded(300,5)", datasets.banded(300, 5), (1,),
              (256, 512, 1024, 2048))):
         t = sblas_torch.to_device(a, dev)
-        for k in ks:
-            x0 = on_card(vec(a.shape[1], k))
+        t64 = sblas_torch.to_device(a.astype(np.float64), dev) \
+            if 8 in ks else None
+        for k, tk, mk, tol in (
+                *((k, t, vec, KERNEL_TOL) for k in ks),
+                *(((4, t64, vec64, KERNEL_TOL_F64),) if t64 else ())):
+            x0 = on_card(mk(a.shape[1], k))
             for unit in units:
-                op = ckern.prepare(t, unit)
-                label = f"{name} unit={unit} K={k}"
+                op = ckern.prepare(tk, unit)
+                label = f"{name} unit={unit} K={k}" + (
+                    " f64" if tk is t64 else "")
                 unit_errs[label] = check_plain(
                     csr_kname(op, k), label, ckern.spmm_csr(op, x0, 2.5),
-                    ckern.spmm_csr_reference(op, x0, 2.5))
+                    ckern.spmm_csr_reference(op, x0, 2.5), tol)
                 del op
             del x0
-        del t
+        del t, t64
     group_bits = {}
     for name, k in (("band-parallel", 1), ("band-parallel", 8),
                     ("chol-nd-poisson2d-120", 1),
@@ -1135,10 +1173,11 @@ def main() -> int:
         route = plan._spmv.method if plan.method == "spmv_passes" \
             else plan.method
         if route in ("merge", "pseg"):
+            if plan.method != "spmv_passes" and k > 1:
+                return csr_kname(plan._op, k)
             vt = torch.float64 if plan.dtype == torch.float64 \
                 else torch.float32
-            return csr_kname({"data": torch.empty(0, dtype=vt)},
-                             1 if plan.method == "spmv_passes" else k)
+            return csr_kname({"data": torch.empty(0, dtype=vt)}, 1)
         kname = by_route[route]
         return kname + "_f64" if plan.dtype == torch.float64 else kname
 
@@ -1380,26 +1419,27 @@ def main() -> int:
     # the graph in f64: its values are the f32 ones cast
     uk64 = graphs["uk-2002@0.05"].astype(np.float64)
     for name, a in (("cant", cant64), ("uk-2002@0.05", uk64)):
-        x, y0 = vec64(a.shape[1], 8), vec64(a.shape[0], 8)
         res = {}
         if a is uk64:
-            xv, yv = x[:, 0].copy(), y0[:, 0].copy()
+            xv, yv = vec64(a.shape[1]), vec64(a.shape[0])
             check(res, name, "f64 SpMV alpha=1/3, beta=-1/2",
                   lambda: sblas_torch.spmv(a, xv, 1 / 3, -0.5, yv),
                   lambda: _get_plan(a, "auto"),
                   spmv_golden(a, xv, 1 / 3, -0.5, yv), f64_tol)
-        check(res, name, "f64 K=8 alpha=1/3, beta=-1/2",
-              lambda: sblas_torch.spmm(a, x, 1 / 3, -0.5, y0, k_hint=8),
-              lambda: spmm_plan(a, "auto", k_hint=8),
-              spmm_golden(a, x, 1 / 3, -0.5, y0), f64_tol)
+        for k in (4, 8):
+            x, y0 = vec64(a.shape[1], k), vec64(a.shape[0], k)
+            check(res, name, f"f64 K={k} alpha=1/3, beta=-1/2",
+                  lambda: sblas_torch.spmm(a, x, 1 / 3, -0.5, y0, k_hint=k),
+                  lambda: spmm_plan(a, "auto", k_hint=k),
+                  spmm_golden(a, x, 1 / 3, -0.5, y0), f64_tol)
         emit({"phase": "main_path", "path": "spmm", "matrix": name,
-              "dtype": "float64", "k": 8, "checks": res})
+              "dtype": "float64", "k": [4, 8], "checks": res})
     for name in ("band-parallel", "chol-nd-poisson2d-1000"):
         solve_main_path(name, factors64[name], np.float64)
     f64_launches = counts()
     emit({"phase": "launches", "path": "f64", **f64_launches})
-    for kname in ("spmv_csr_f64", "spmm_csr_f64", "spmm_csr_cols_f64",
-                  "sptrsv_csr_f64"):
+    for kname in ("spmv_csr_f64", "spmm_csr_f64", "spmm_csr_rows_f64",
+                  "spmm_csr_cols_f64", "sptrsv_csr_f64"):
         if f64_launches[kname] == 0:
             raise RuntimeError(f"the f64 main path never launched {kname}")
     launches = {name: launches[name] + f64_launches[name]
@@ -1666,14 +1706,15 @@ def main() -> int:
     # the plain versions take tens of ms on the graphs: fewer iterations
     few = {"iters_lo": 2, "iters_hi": 6, "repeats": 1}
 
-    def x_gather_fit(a, k, merge_us):
-        """The share of the X bytes the merge route gathers (K floats a
-        nonzero) that its time pays at the STREAM rate beyond its CSR
-        stream, X in and Y in and out: the SpMM rule's X_GATHER."""
+    def x_gather_fit(a, k, merge_us, vb=4):
+        """The share of the X bytes the merge route gathers (K values of
+        ``vb`` bytes a nonzero) that its time pays at the STREAM rate
+        beyond its CSR stream, X in and Y in and out: the SpMM rule's
+        X_GATHER."""
         m, n = a.shape
-        rest = csr_stream_bytes(m, a.nnz, 4) + (n + 2 * m) * k * 4
+        rest = csr_stream_bytes(m, a.nnz, vb) + (n + 2 * m) * k * vb
         return (merge_us * 1e-6 * stream_bandwidth(dev) * 1e9 - rest) / \
-            (a.nnz * k * 4)
+            (a.nnz * k * vb)
 
     timings = {}
     for name, a in (("cant", cant), ("fem-band-1M-112M", fem)):
@@ -1768,25 +1809,33 @@ def main() -> int:
           "faster_route": min(route_times, key=route_times.get),
           "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
     del x0, routes
-    routes = {r: bench_spmm(uk64, 8, method=r, device=dev,
-                            baseline=r == "merge")
-              for r in ("merge", "spmv_passes", "bucket")}
-    route_times = {r: rec.seconds_per_iter * 1e6 for r, rec in routes.items()}
-    x0 = on_card(vec64(uk64.shape[1], 8))
-    timings["uk-2002@0.05 f64 K=8"] = {
-        "kernel_us": route_times["merge"],
-        "bound_us": routes["merge"].extra["bound_us"],
-        "bound_by": routes["merge"].extra["bound_by"],
-        "cusparse_us": routes["merge"].extra["baseline_us"],
-        "plain_us": us(lambda x, x0: ckern.spmm_csr_reference(
-            t, x, EPS, 1.0, x0), x0, **few)}
-    emit({"phase": "spmm_timing", "matrix": "uk-2002@0.05",
-          "dtype": "float64", "k": 8, "card": card, "route_us": route_times,
-          **timings["uk-2002@0.05 f64 K=8"],
-          "rule_picked": spmm_plan(uk64, "auto", k_hint=8).method,
-          "faster_route": min(route_times, key=route_times.get),
-          "rel_err": {r: rec.extra["rel_err"] for r, rec in routes.items()}})
-    del uk64, routes, t, x0
+    # SpMM at K = 4 (merge: the f64 build's rows kernel) and 8 (its
+    # columns kernel)
+    for k in (4, 8):
+        routes = {r: bench_spmm(uk64, k, method=r, device=dev,
+                                baseline=r == "merge")
+                  for r in ("merge", "spmv_passes", "bucket")}
+        route_times = {r: rec.seconds_per_iter * 1e6
+                       for r, rec in routes.items()}
+        x0 = on_card(vec64(uk64.shape[1], k))
+        label = f"uk-2002@0.05 f64 K={k}"
+        timings[label] = {
+            "kernel": csr_kname(t, k),
+            "kernel_us": route_times["merge"],
+            "bound_us": routes["merge"].extra["bound_us"],
+            "bound_by": routes["merge"].extra["bound_by"],
+            "cusparse_us": routes["merge"].extra["baseline_us"],
+            "plain_us": us(lambda x, x0: ckern.spmm_csr_reference(
+                t, x, EPS, 1.0, x0), x0, **few)}
+        emit({"phase": "spmm_timing", "matrix": "uk-2002@0.05",
+              "dtype": "float64", "k": k, "card": card,
+              "route_us": route_times, **timings[label],
+              "rule_picked": spmm_plan(uk64, "auto", k_hint=k).method,
+              "faster_route": min(route_times, key=route_times.get),
+              "rel_err": {r: rec.extra["rel_err"]
+                          for r, rec in routes.items()}})
+        del routes, x0
+    del uk64, t
     rec = bench_spmm(cant64, 8, method="auto", device=dev)
     others = {r: bench_spmm(cant64, 8, method=r, device=dev,
                             baseline=False).seconds_per_iter * 1e6
@@ -1913,11 +1962,74 @@ def main() -> int:
               **row})
         del nat, rel, sp, x0, want
 
+    # 6c. f64 at K = 2, 4, 8: the rows kernel's f64 build against the
+    # columns kernel (each checked first) and the spmv_passes route, on the
+    # graphs (uk-2002@0.05, twitter7@0.02, the suite's powerlaw-1M-102M at
+    # K = 2, 4) and on FEM rows (cant, pwtk): the f64 range of
+    # rows_kernel's rule, and auto's f64 pick, come from these -----------
+    powerlaw, powerlaw_gen_s = powerlaw_job.result()
+    late.shutdown()
+    for name, a, ks in (("uk-2002@0.05", graphs["uk-2002@0.05"], (2, 4, 8)),
+                        ("twitter7@0.02", graphs["twitter7@0.02"],
+                         (2, 4, 8)),
+                        ("powerlaw-1M-102M", powerlaw, (2, 4)),
+                        ("cant", cant64, (2, 4, 8)),
+                        ("pwtk", pwtk, (2, 4, 8))):
+        a = a.astype(np.float64)
+        m, n = a.shape
+        op = ckern.prepare(sblas_torch.to_device(a, dev))
+        passes = spmm_plan(a, "spmv_passes")
+        for k in ks:
+            x0 = on_card(vec64(n, k))
+            want = ckern.spmm_csr_reference(op, x0, 2.5)
+            row = {"rule_kernel": csr_kname(op, k)}
+            for design in ("rows", "cols"):
+                o = {**op, "design": design}
+                check_plain(csr_kname(o, k), f"{name} f64 K={k} {design}",
+                            ckern.spmm_csr(o, x0, 2.5), want,
+                            KERNEL_TOL_F64)
+                row[f"{design}_us"] = us(lambda x, x0, o=o: ckern.spmm_csr(
+                    o, x, EPS, 1.0, x0), x0)
+            err = rel_err(passes(x0).cpu().numpy(),
+                          want.cpu().numpy() / 2.5)
+            if not err < f64_tol:
+                raise RuntimeError(f"{name} f64 K={k} spmv_passes: rel_err "
+                                   f"{err}")
+            routes = {"merge": row["rows_us" if row["rule_kernel"].startswith(
+                "spmm_csr_rows") else "cols_us"],
+                "spmv_passes": us(lambda x, x0: passes(x, EPS, 1.0, x0),
+                                  x0)}
+            nbytes = csr_stream_bytes(m, a.nnz, 8) + (n + 2 * m) * k * 8
+            row["bound_us"], row["bound_by"] = bound_us(
+                nbytes, 2 * a.nnz * k, np.float64)
+            # auto's f64 pick, the cheaper of the two by the bytes model
+            # (as SpmmPlan._pick; a plan would also pass over the block ids
+            # for its reason)
+            prices = SpmmPlan.prices(a, k, val_bytes=8, vec_bytes=8,
+                                     block=False)
+            emit({"phase": "k_switch", "matrix": name, "dtype": "float64",
+                  "k": k, "card": card, "nnz": a.nnz,
+                  "mean_row": a.nnz / m,
+                  "median_row": float(np.median(a.row_lengths)), **row,
+                  "faster_kernel": "spmm_csr_rows_f64"
+                  if row["rows_us"] < row["cols_us"] else "spmm_csr_cols_f64",
+                  "route_us": routes,
+                  "rule_picked": min(("merge", "spmv_passes"),
+                                     key=prices.get),
+                  "faster_route": min(routes, key=routes.get),
+                  "x_gather_fit": x_gather_fit(a, k, routes["merge"], 8)})
+            del x0, want
+        del op, a, passes
+    del powerlaw
+
     # 7. SpMM timing on the FEM matrices: the block kernel, its plain
     # version, cuSPARSE, the bound and the other routes -----------------
     spmm_timings = {}
     fem_rows = [(name, a, k, br) for name, a in fem_suite.items()
                 for k in (8, 32) for br in (128, 64)]
+    # the route rule at K = 16 too, and on pwtk
+    fem_rows += [(name, a, 16, 128) for name, a in fem_suite.items()]
+    fem_rows += [("pwtk", pwtk, k, 128) for k in (8, 16)]
     for name, a, k, br in fem_rows:
         rec = bench_spmm(a, k, method="block", block_rows=br, ratio_pairs=2,
                          device=dev)
@@ -2138,6 +2250,7 @@ def main() -> int:
           "suite_generate_s": suite_gen_s, "fem_generate_s": fem_gen_s,
           "graph_generate_s": graph_gen_s, "relabel_s": relabel_s,
           "factor_generate_s": factor_gen_s, "pwtk_generate_s": pwtk_gen_s,
+          "powerlaw_generate_s": powerlaw_gen_s,
           "solve_golden_s": solve_golden_s,
           "solver_generate_s": solver_gen_s})
     main = spmm_timings[("consph", 8, 128)]
@@ -2148,6 +2261,7 @@ def main() -> int:
     big64 = solve_timings["chol-nd-poisson2d-1000 f64"]["K=1"]
     cant_f64 = timings["cant f64"]
     uk_f64 = timings["uk-2002@0.05 f64"]
+    uk4_f64 = timings["uk-2002@0.05 f64 K=4"]
     uk8_f64 = timings["uk-2002@0.05 f64 K=8"]
     emit({"kernels": [
         {"name": "spmv_csr", "route": "cuda",
@@ -2189,6 +2303,19 @@ def main() -> int:
          "bound_ms": tw["bound_us"] / 1e3, "bound_by": tw["bound_by"],
          "library_ms": tw["cusparse_us"] / 1e3,
          "shape": "twitter7@0.02 f32 K=8, natural order (route merge; "
+                  "spmm_rows_kernel)"},
+        {"name": "spmm_csr_rows_f64", "route": "cuda",
+         "source": "sblas_torch/csrc/spmm_csr.cu",
+         "replaces": ["sblas/ops/kernels/spmm_pseg.py:134",
+                      "sblas/ops/kernels/spmm_pallas.py:30"],
+         "launches": launches["spmm_csr_rows_f64"],
+         "max_abs_err": max_abs["spmm_csr_rows_f64"],
+         "ms": uk4_f64["kernel_us"] / 1e3,
+         "plain_ms": uk4_f64["plain_us"] / 1e3,
+         "bound_ms": uk4_f64["bound_us"] / 1e3,
+         "bound_by": uk4_f64["bound_by"],
+         "library_ms": uk4_f64["cusparse_us"] / 1e3,
+         "shape": "uk-2002@0.05 f64 K=4 (route merge, auto's f64 pick; "
                   "spmm_rows_kernel)"},
         {"name": "spmm_csr_cols", "route": "cuda",
          "source": "sblas_torch/csrc/spmm_csr.cu",

@@ -435,6 +435,7 @@ COUNTERS = {"spmv_csr": (spmv_csr, "LAUNCHES"),
             "spmm_csr": (spmm_csr, "LAUNCHES"),
             "spmm_csr_f64": (spmm_csr, "LAUNCHES_F64"),
             "spmm_csr_rows": (spmm_csr, "LAUNCHES_ROWS"),
+            "spmm_csr_rows_f64": (spmm_csr, "LAUNCHES_ROWS_F64"),
             "spmm_csr_cols": (spmm_csr, "LAUNCHES_COLS"),
             "spmm_csr_cols_f64": (spmm_csr, "LAUNCHES_COLS_F64"),
             "sptrsv_csr": (sptrsv_csr, "LAUNCHES"),

@@ -54,39 +54,67 @@
 //     which completes the row each lane closes first and leaves the share's
 //     last, cut row in lane 31.
 //
-// K > 1 has two kernels. What bounded the first design, which walked a
-// share 32 / G rows at a time, G lanes a row, KC columns of K (up to 16, 8
-// in f64) in each lane's registers: at K = 32 it took 927 us on
-// uk-2002@0.05 and 1,467 on twitter7@0.02 (6.5-8.9x the bound; cuSPARSE's
-// addmm 864 and 1,490) and 79.8 on cant in f64 at K = 8 (H100 80GB HBM3,
-// 700 W; PERF.md). Each lane's loads depended on each other (an index,
-// then X at that index: one gather in flight), and the K-chunks of a
-// share, on neighbouring warps, walked the CSR stream twice at K = 32 (f64:
-// four times), with all of X live. Now:
+// K > 1 has two kernels, both one pass over the CSR stream. What bounds
+// them on an H100 at K <= 16: the CSR stream from HBM, and the X rows
+// gathered, K values a nonzero (nnz * K * 4 bytes in f32: 461 MB on
+// uk-2002@0.05 at K = 8, 4x the CSR stream), from L1 and L2 where X fits
+// there (27-32 MB at K = 8 on the graphs). The first design walked a share
+// 32 / G rows at a time, G lanes a row, with the sums of a chunk of K in
+// each lane's registers; it ran at 21-29% of the bound at K = 8 (uk-2002
+// 212 us against 62.08, twitter7@0.02 383 against 92.81; H100 80GB HBM3,
+// 700 W; PERF.md), for four reasons: (a) nothing was staged: G-lane groups
+// read 32 / G separate row spans of what is one contiguous span of
+// nonzeros; (b) each lane had one gather in flight (an index, then X at
+// that index, then the FMAs, in a loop of varying trip count); (c) each
+// round of lane groups waited for the warp's longest row, and rows longer
+// than 8 * G went to the whole warp one after the other; (d) a row's K
+// sums went out as 4-byte stores from G lanes. Now:
 //
+//   * spmm_rows_kernel (the rows kernel; f32/bf16 values and f64, the
+//     small K that ops/kernels/spmm_csr.py:rows_kernel gives it) takes the
+//     K = 1 kernel's scheme to KC columns (16 to 64 bytes of them: 4, 8,
+//     16 floats or 2, 4, 8 doubles; the grid's y takes chunks of 64 bytes'
+//     worth past that). (a) The warp stages its share's values, column
+//     indices and row ends, coalesced and evict-first, each nonzero one
+//     slot in 33 apart as at K = 1. (b) Each lane walks a contiguous run
+//     of ceil(unit / 32) merged-path items with its KC sums in registers,
+//     and loads the X rows of its next kRowsBatch nonzeros (2 to 8 rows,
+//     16 bytes a load where K allows) before it uses any. (c) A run closes
+//     every row that ends in it as it comes, whatever the rows' lengths:
+//     a long row is a run of nonzeros in many lanes (and shares), short
+//     ones many closes in one lane, and the rows left open at the runs'
+//     ends meet in a segmented shuffle scan (KC columns, keyed by the open
+//     row). (d) A closed row's KC sums leave its lane as 16-byte stores;
+//     beta * Y_in is added after the walk in a coalesced pass, as in the
+//     columns kernel. What then bounds it is how many warps an SM holds
+//     (their gathers in flight): the sums of the row a lane closes first
+//     wait for the scan in shared memory, not in registers, and shares of
+//     UNIT = 512 items (4.2 KB a warp in f32, and 32 * KC sums) timed
+//     faster than 256 (more scans) and 1,024 (fewer warps; PERF.md).
+//     Staging the
+//     products instead (a warp gathering the X rows of consecutive
+//     nonzeros, K values a nonzero in shared memory) timed slower at K >= 8
+//     in two layouts: the walk's reads met bank conflicts, and the 8-16 KB
+//     a warp left fewer warps and less L1;
 //   * spmm_merge_kernel (the columns kernel) stages its share once, as
-//     the K = 1 kernel does (values, column indices and row ends;
-//     coalesced, evict-first), and gives lanes the columns: slots of W
+//     the K = 1 kernel does, and gives lanes the columns: slots of W
 //     lanes (W the power of two that holds K, up to 32; 2 or 4 columns a
 //     lane past 32) take the share's nonzeros 32 / W a step, so that at K
 //     = 32 a nonzero's X row is one 128-byte warp load and a row's store
-//     one coalesced run. A lane issues 8 gathers before it uses any. A row that ends inside a step takes the products of the
-//     slots before its end, and its slots' sums meet in a shuffle tree
-//     (none from K = 17 on); no row needs a special case, since a share
-//     holds at most `unit` items of it. All of K up to 128 columns is one
-//     pass over the CSR stream. beta * Y_in is added after the walk, in a
-//     coalesced pass of the rows the share completed: read while the row
-//     closed, its load's latency stalled every row. Shares of UNIT_COLS =
-//     512 items (4 KB of shared memory a warp in f32) leave room for twice
-//     the warps of 1,024. It takes f64 at every K > 1 and f32/bf16 values
-//     past K = 16;
-//   * spmm_rows_kernel (the rows kernel, the first design) stays for f32
-//     and bf16 values up to K = 16, where it is the faster on an H100 (in
-//     one call of chip_smoke.py, rows kernel against columns kernel: K = 8
-//     uk-2002@0.05 212 us against 276, twitter7@0.02 378 against 408; K =
-//     16 382 / 442, 592 / 700; K = 32 928 / 754, 1,469 / 1,244).
-//     Rows there are short and many: its lane groups close 32 / G rows at
-//     once where the columns kernel closes them one after the other.
+//     one coalesced run. A lane issues 8 gathers before it uses any. A
+//     row that ends inside a step takes the products of the slots before
+//     its end, and its slots' sums meet in a shuffle tree (none from K =
+//     17 on); no row needs a special case, since a share holds at most
+//     `unit` items of it. All of K up to 128 columns is one pass over the
+//     CSR stream. beta * Y_in is added after the walk, in a coalesced pass
+//     of the rows the share completed: read while the row closed, its
+//     load's latency stalled every row. Shares of UNIT_COLS = 512 items (4
+//     KB of shared memory a warp in f32) leave room for twice the warps of
+//     1,024. It takes the K past the rows kernel's range. It closes a
+//     step's rows one after the other, so it loses where rows are short
+//     and many (the first rows design against it, one call of
+//     chip_smoke.py: K = 8 uk-2002@0.05 212 us against 276, K = 16 382
+//     against 442; K = 32 928 against 754).
 //
 // Both: no atomics. A row that a share finishes is written by it, with the
 // alpha/beta epilogue fused. The row a share ends inside leaves its
@@ -125,20 +153,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kFixThreads = 256;  // fix-up: one cut row (and column) a thread
 constexpr int kShortFix = 8;      // fix-up: carries a thread adds alone
 constexpr int kFixBatch = 8;      // fix-up: carry loads a lane has in flight
-constexpr int kBatch = 8;         // K = 1: loads a lane has in flight
+constexpr int kBatch = 8;         // staging: loads a lane has in flight
 constexpr unsigned kFull = 0xffffffffu;
 // the columns kernel with bf16 values: 8 CTAs an SM (at most 64 registers
 // a thread), under which ptxas does not spill at W = 8 as it does unbounded
 template <typename V>
 constexpr int kColsMinCtas = sizeof(V) == 2 ? 8 : 1;
-
-__device__ __forceinline__ float load_value(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ double load_value(const double* p) { return __ldg(p); }
 
 // a value read once: evict-first, so that L1 keeps the x entries gathered
 __device__ __forceinline__ float load_streamed(const float* p) { return __ldcs(p); }
@@ -286,137 +306,280 @@ spmv_merge_kernel(int m, int units, int unit, const int* __restrict__ indptr,
   if (lane == 31 && r1 < m) carry[u] = v;
 }
 
-// acc[q] += v * X[c, k0 + q] for the KC columns of the chunk (none past K).
-// `vec`: 16-byte loads of X (K a multiple of 16 / sizeof(T), X aligned).
-template <typename T, int KC>
-__device__ __forceinline__ void fma_row(T (&acc)[KC], T v, const T* __restrict__ x, int c,
-                                        int k, int k0, bool vec) {
-  const T* src = x + static_cast<long long>(c) * k + k0;
-  if (vec) {
-    if constexpr (sizeof(T) == sizeof(float)) {
-#pragma unroll
-      for (int p = 0; p < KC / 4; ++p) {
-        if (k0 + 4 * p < k) {
-          const float4 x4 = __ldg(reinterpret_cast<const float4*>(src) + p);
-          acc[4 * p + 0] = fma_t(v, x4.x, acc[4 * p + 0]);
-          acc[4 * p + 1] = fma_t(v, x4.y, acc[4 * p + 1]);
-          acc[4 * p + 2] = fma_t(v, x4.z, acc[4 * p + 2]);
-          acc[4 * p + 3] = fma_t(v, x4.w, acc[4 * p + 3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int p = 0; p < KC / 2; ++p) {
-        if (k0 + 2 * p < k) {
-          const double2 x2 = __ldg(reinterpret_cast<const double2*>(src) + p);
-          acc[2 * p + 0] = fma_t(v, x2.x, acc[2 * p + 0]);
-          acc[2 * p + 1] = fma_t(v, x2.y, acc[2 * p + 1]);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < KC; ++q) {
-      if (k0 + q < k) acc[q] = fma_t(v, __ldg(src + q), acc[q]);
-    }
-  }
+// shared memory a warp of the rows kernel stages its share in: the values
+// (in T) and the column indices, each at slot padded(i) as in
+// spmv_merge_kernel, from the front, and the row ends (ints) from the back
+// of (padded(unit) + 1) * (sizeof(T) + 4) bytes (nnz + rows <= unit);
+// after them, each lane's KC sums of the row it closes first
+template <typename T>
+__host__ __device__ constexpr size_t stage_smem_rows(int unit) {
+  return ((static_cast<size_t>(padded(unit)) + 1) * (sizeof(T) + 4) + 15) / 16 * 16;
 }
 
-// K > 1 on short rows: share `unit`'s chunk of KC columns, rows as in
-// spmv_merge_kernel, taken G lanes a row (the note at the top).
-template <typename V, typename T, int KC, int G>
-__global__ void __launch_bounds__(kThreads)
-spmm_rows_kernel(int m, int k, int units, const int* __restrict__ indptr,
-                const int* __restrict__ indices, const V* __restrict__ values,
-                const int* __restrict__ part, const T* __restrict__ x,
-                const T* __restrict__ y_in, T alpha, T beta, T* __restrict__ y_out,
-                T* __restrict__ carry, bool vec) {
-  constexpr int kGroups = 32 / G;
-  const int chunks = (k + KC - 1) / KC;
-  const long long w = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (w >= static_cast<long long>(units) * chunks) return;  // the warp leaves together
-  const int unit = static_cast<int>(w / chunks);
-  const int k0 = static_cast<int>(w % chunks) * KC;
+template <typename T, int KC>
+__host__ __device__ constexpr size_t warp_smem_rows(int unit) {
+  return stage_smem_rows<T>(unit) + 32 * KC * sizeof(T);
+}
+
+// 16 bytes of T (4 floats or 2 doubles), and its values
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<float> {
+  using type = float4;
+};
+template <>
+struct Chunk<double> {
+  using type = double2;
+};
+
+__device__ __forceinline__ void split(const float4& c, float (&e)[4]) {
+  e[0] = c.x;
+  e[1] = c.y;
+  e[2] = c.z;
+  e[3] = c.w;
+}
+
+__device__ __forceinline__ void split(const double2& c, double (&e)[2]) {
+  e[0] = c.x;
+  e[1] = c.y;
+}
+
+__device__ __forceinline__ float4 join(const float (&e)[4]) {
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+__device__ __forceinline__ double2 join(const double (&e)[2]) { return make_double2(e[0], e[1]); }
+
+// the rows kernel's X rows in flight a lane, and its blocks an SM. Where
+// an X row is 4 floats (K <= 4 in f32), 4 rows in flight and 8 blocks an
+// SM (at most 64 registers; no spill) timed faster on the H100 than 8
+// rows at the ~76 registers ptxas takes unbounded, on the graphs and pwtk
+// (PERF.md); elsewhere 128 bytes of rows in flight (2 to 8
+// rows) and no bound: bounded, f64 timed slower, and f32 at K > 4 faster
+// on the graphs but slower on the FEM matrices
+template <typename T, int KC>
+constexpr bool kRowsNarrow = sizeof(T) == sizeof(float) && KC == 4;
+template <typename T, int KC>
+constexpr int kRowsBatch = kRowsNarrow<T, KC> ? 4 : 128 / (KC * static_cast<int>(sizeof(T)));
+
+// K > 1 (the rows kernel): share u, columns k0 .. k0 + KC - 1 (k0 =
+// blockIdx.y * KC). The warp stages its share's values, column indices
+// and row ends; each lane walks a run of the merged path as in
+// spmv_merge_kernel, KC sums in registers, and loads the X rows of its
+// next kB nonzeros before it uses any. The runs' open rows meet in a
+// segmented shuffle scan; beta * Y_in comes after, in a coalesced pass.
+template <typename V, typename T, int KC>
+__global__ void __launch_bounds__(kThreads, (kRowsNarrow<T, KC> ? 8 : 1))
+spmm_rows_kernel(int m, int k, int units, int unit, const int* __restrict__ indptr,
+                 const int* __restrict__ indices, const V* __restrict__ values,
+                 const int* __restrict__ part, const T* __restrict__ x,
+                 const T* __restrict__ y_in, T alpha, T beta, T* __restrict__ y_out,
+                 T* __restrict__ carry, bool vec) {
+  using C = typename Chunk<T>::type;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // values a chunk
+  constexpr int W = KC / kVec;                              // chunks a row
+  constexpr int kB = kRowsBatch<T, KC>;                     // X rows in flight
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  const int g = lane / G;
-  const int gl = lane % G;
-  const int r0 = __ldg(part + 2 * unit);
-  const int j0 = __ldg(part + 2 * unit + 1);
-  const int r1 = __ldg(part + 2 * unit + 2);
-  const int j1 = __ldg(part + 2 * unit + 3);
-  const int rows = r1 - r0 + (r1 < m ? 1 : 0);
+  const long long u = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (u >= units) return;  // the warp leaves together; no block barrier below
+  const int k0 = static_cast<int>(blockIdx.y) * KC;
+  const int kk = min(KC, k - k0);  // this chunk's columns
+  const size_t per = warp_smem_rows<T, KC>(unit);
+  unsigned char* mine = smem + per * (threadIdx.x / 32);
+  const size_t staged = stage_smem_rows<T>(unit);
+  const int r0 = __ldg(part + 2 * u);
+  const int j0 = __ldg(part + 2 * u + 1);
+  const int r1 = __ldg(part + 2 * u + 2);
+  const int j1 = __ldg(part + 2 * u + 3);
+  const int rows = r1 - r0;  // rows that end inside the share
+  const int nnz = j1 - j0;
+  const int total = rows + nnz;
+  T* s_val = reinterpret_cast<T*>(mine);
+  int* s_col = reinterpret_cast<int*>(s_val + padded(nnz) + 1);
+  int* s_end = reinterpret_cast<int*>(mine + staged) - rows;
+  C* s_first = reinterpret_cast<C*>(mine + staged) + lane * W;
   // the share's first row began in an earlier share: written raw, fixed up
   const bool first_cut = __ldg(indptr + r0) < j0;
 
-  // the sum s of row r, column k0 + q, to where it belongs
-  auto emit = [=](int r, int q, T s) {
-    if (r == r1) {
-      carry[static_cast<long long>(unit) * k + k0 + q] = s;
-      return;
+  // 1. stage the row ends (relative to j0), column indices and values:
+  // contiguous spans, coalesced, evict-first, kBatch loads a lane in flight
+  for (int i = lane; i < rows; i += 32) s_end[i] = __ldcs(indptr + r0 + 1 + i) - j0;
+  for (int i0 = 0; i0 < nnz; i0 += 32 * kBatch) {
+    int c[kBatch];
+    T v[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + lane + 32 * q;
+      c[q] = 0;
+      v[q] = T(0);
+      if (i < nnz) {
+        c[q] = __ldcs(indices + j0 + i);
+        v[q] = load_streamed(values + j0 + i);
+      }
     }
-    const long long idx = static_cast<long long>(r) * k + k0 + q;
-    if (r == r0 && first_cut) {
-      y_out[idx] = s;
-      return;
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + lane + 32 * q;
+      if (i < nnz) {
+        s_col[padded(i)] = c[q];
+        s_val[padded(i)] = v[q];
+      }
     }
-    T out = alpha * s;
-    if (y_in != nullptr) out += beta * y_in[idx];
-    y_out[idx] = out;
-  };
+  }
+  __syncwarp();
 
-  for (int base = 0; base < rows; base += kGroups) {
-    const int i = base + g;
-    int r = -1, s = 0, e = 0;
-    if (i < rows) {
-      r = r0 + i;
-      s = max(__ldg(indptr + r), j0);
-      e = min(__ldg(indptr + r + 1), j1);
+  // 2. this lane's run of the merged path, items d0 .. d1: row ends ri0 ..
+  // ri1 - 1 and nonzeros ni0 .. ni1 - 1. Its start by a search along
+  // diagonal d0; its end is where the next lane's run starts (lane 31's
+  // run ends with the share)
+  const int ipt = (unit + 31) / 32;
+  const int d0 = min(lane * ipt, total);
+  const int d1 = min(d0 + ipt, total);
+  int lo = max(d0 - nnz, 0), hi = min(d0, rows);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    // row end mid comes before nonzero d0 - mid - 1 when it is <= it
+    if (s_end[mid] <= d0 - mid - 1) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
-    const bool is_long = e - s > 8 * G;
-    T acc[KC];
+  }
+  const int ri0 = lo;
+  const int ni0 = d0 - lo;
+  int ri1 = __shfl_down_sync(kFull, ri0, 1);
+  if (lane == 31) ri1 = rows;
+  const int ni1 = d1 - ri1;
+  int ri = ri0;
+  T acc[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) acc[q] = T(0);
+  bool closed = false;  // has the run closed a row yet?
+  // a row's KC sums to dst, times scale: 16-byte stores where `vec`
+  auto put = [&](T* dst, const T(&sums)[KC], T scale) {
+    if (vec) {
+#pragma unroll
+      for (int p = 0; p < W; ++p) {
+        if (p * kVec >= kk) continue;
+        T e[kVec];
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) e[q] = scale * sums[p * kVec + q];
+        reinterpret_cast<C*>(dst)[p] = join(e);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < KC; ++q) {
+        if (q < kk) dst[q] = scale * sums[q];
+      }
+    }
+  };
+  // row ri ends: the run's first such row waits for the scan (its sums
+  // in shared memory, out of the registers); a later one began in this run
+  // and is complete (alpha now, beta * Y_in in step 4)
+  auto close = [&]() {
+    if (closed) {
+      put(y_out + static_cast<long long>(r0 + ri) * k + k0, acc, alpha);
+    } else {
+#pragma unroll
+      for (int p = 0; p < W; ++p) {
+        T e[kVec];
+#pragma unroll
+        for (int h = 0; h < kVec; ++h) e[h] = acc[p * kVec + h];
+        s_first[p] = join(e);
+      }
+      closed = true;
+    }
 #pragma unroll
     for (int q = 0; q < KC; ++q) acc[q] = T(0);
-    if (!is_long) {
-      for (int j = s + gl; j < e; j += G) {
-        fma_row<T, KC>(acc, load_value(values + j), x, __ldg(indices + j), k, k0, vec);
+    ++ri;
+  };
+  int e = ri < rows ? s_end[ri] : 0x7fffffff;  // row ri ends before nonzero e
+  for (int nb = ni0; nb < ni1; nb += kB) {
+    T v[kB];
+    T xv[kB][KC];
+#pragma unroll
+    for (int q = 0; q < kB; ++q) {
+      const int n = nb + q;
+      const bool in = n < ni1;
+      const T* src = x + (in ? static_cast<long long>(s_col[padded(n)]) : 0LL) * k + k0;
+      v[q] = in ? s_val[padded(n)] : T(0);
+#pragma unroll
+      for (int p = 0; p < W; ++p) {
+        T ch[kVec];
+#pragma unroll
+        for (int h = 0; h < kVec; ++h) ch[h] = T(0);
+        if (vec) {
+          if (in && p * kVec < kk) split(__ldg(reinterpret_cast<const C*>(src) + p), ch);
+        } else {
+#pragma unroll
+          for (int h = 0; h < kVec; ++h) {
+            if (in && p * kVec + h < kk) ch[h] = __ldg(src + p * kVec + h);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < kVec; ++h) xv[q][p * kVec + h] = ch[h];
       }
     }
-    // every lane takes part, so the full mask holds; offsets stay in the group
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
+    for (int q = 0; q < kB; ++q) {
+      const int n = nb + q;
+      if (n < ni1) {
+        while (e <= n) {
+          close();
+          e = ri < rows ? s_end[ri] : 0x7fffffff;
+        }
 #pragma unroll
-      for (int q = 0; q < KC; ++q) acc[q] += __shfl_xor_sync(kFull, acc[q], off);
-    }
-    if (i < rows && !is_long) {
-#pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        if (q % G == gl && k0 + q < k) emit(r, q, acc[q]);
+        for (int p = 0; p < KC; ++p) acc[p] = fma_t(v[q], xv[q][p], acc[p]);
       }
     }
-    // this round's long rows: the whole warp, one row at a time
-    unsigned longs = __ballot_sync(kFull, i < rows && is_long && gl == 0);
-    while (longs != 0u) {
-      const int src = __ffs(longs) - 1;
-      longs &= longs - 1u;
-      const int lr = __shfl_sync(kFull, r, src);
-      const int ls = __shfl_sync(kFull, s, src);
-      const int le = __shfl_sync(kFull, e, src);
-      T a2[KC];
+  }
+  // the row ends after the run's last nonzero
+  while (ri < ri1) close();
+
+  // 3. the segmented scan of the rows left open at the runs' ends (row
+  // ri1), as in spmv_merge_kernel, a column at a time
 #pragma unroll
-      for (int q = 0; q < KC; ++q) a2[q] = T(0);
-      for (int j = ls + lane; j < le; j += 32) {
-        fma_row<T, KC>(a2, load_value(values + j), x, __ldg(indices + j), k, k0, vec);
-      }
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ko = __shfl_up_sync(kFull, ri, off);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int q = 0; q < KC; ++q) a2[q] += __shfl_xor_sync(kFull, a2[q], off);
-      }
-#pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        if (q == lane && k0 + q < k) emit(lr, q, a2[q]);
-      }
+    for (int q = 0; q < KC; ++q) {
+      const T vo = __shfl_up_sync(kFull, acc[q], off);
+      if (lane >= off && ko == ri) acc[q] = vo + acc[q];
     }
+  }
+  // the run before this one ends in the row this run closes first
+  T first[KC];
+#pragma unroll
+  for (int p = 0; p < W; ++p) {
+    T e[kVec];
+    split(s_first[p], e);
+#pragma unroll
+    for (int h = 0; h < kVec; ++h) first[p * kVec + h] = closed ? e[h] : T(0);
+  }
+#pragma unroll
+  for (int q = 0; q < KC; ++q) {
+    const T before = __shfl_up_sync(kFull, acc[q], 1);
+    if (lane > 0) first[q] = before + first[q];
+  }
+  if (closed) {
+    const bool raw = ri0 == 0 && first_cut;
+    put(y_out + static_cast<long long>(r0 + ri0) * k + k0, first, raw ? T(1) : alpha);
+  }
+  // lane 31's run ends where the share does: inside row r1
+  if (lane == 31 && r1 < m) put(carry + u * k + k0, acc, T(1));
+
+  // 4. beta * Y_in added to the rows the share completed (not the raw
+  // first row), a coalesced pass with its loads in flight
+  if (y_in == nullptr) return;
+  __syncwarp();  // the warp's stores above are seen by every lane
+  const int rlo = first_cut ? 1 : 0;
+  const int span = (rows - rlo) * kk;
+#pragma unroll 4
+  for (int i = lane; i < span; i += 32) {
+    const long long idx = static_cast<long long>(r0 + rlo + i / kk) * k + k0 + i % kk;
+    y_out[idx] += beta * __ldcs(y_in + idx);
   }
 }
 
@@ -712,54 +875,52 @@ cudaError_t launch_cols(const Args<T>& a) {
   return launch_main<V, T, 32, 4>(a);
 }
 
-template <typename V, typename T, int KC, int G>
+template <typename V, typename T, int KC>
 cudaError_t launch_rows_main(const Args<T>& a) {
-  const long long warps = static_cast<long long>(a.units) * ((a.k + KC - 1) / KC);
-  const long long ctas = (warps + kWarps - 1) / kWarps;
-  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool vec = a.k % static_cast<int>(16 / sizeof(T)) == 0 &&
-                   reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  spmm_rows_kernel<V, T, KC, G><<<static_cast<unsigned>(ctas), kThreads, 0, a.stream>>>(
-      a.m, a.k, a.units, a.indptr, a.indices, static_cast<const V*>(a.values), a.part, a.x,
-      a.y_in, a.alpha, a.beta, a.y_out, a.carry, vec);
+  const long long ctas = (static_cast<long long>(a.units) + kWarps - 1) / kWarps;
+  const int chunks = (a.k + KC - 1) / KC;
+  if (ctas > 0x7fffffffLL || chunks > 65535) return cudaErrorInvalidValue;
+  const size_t smem = kWarps * warp_smem_rows<T, KC>(a.unit);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(spmm_rows_kernel<V, T, KC>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  // 16-byte rows of X, Y and the carries: K a multiple of 16 / sizeof(T),
+  // each array 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a.x) |
+                          reinterpret_cast<uintptr_t>(a.y_out) |
+                          reinterpret_cast<uintptr_t>(a.carry);
+  const bool vec = a.k % static_cast<int>(16 / sizeof(T)) == 0 && bases % 16 == 0;
+  const dim3 grid(static_cast<unsigned>(ctas), static_cast<unsigned>(chunks));
+  spmm_rows_kernel<V, T, KC><<<grid, kThreads, smem, a.stream>>>(
+      a.m, a.k, a.units, a.unit, a.indptr, a.indices, static_cast<const V*>(a.values), a.part,
+      a.x, a.y_in, a.alpha, a.beta, a.y_out, a.carry, vec);
   return cudaGetLastError();
 }
 
-// the rows kernel's K-chunk: the smallest of 4, 8, 16 that holds K, else 16
-template <typename V, typename T, int G>
+// the rows kernel's columns a chunk KC: the smallest that holds K of 16
+// bytes' worth (4 floats, 2 doubles) up to 64 bytes' worth (16 floats, 8
+// doubles); past that the grid's y takes chunks of 64 bytes' worth
+template <typename V, typename T>
 cudaError_t launch_rows(const Args<T>& a) {
-  if (a.k <= 4) return launch_rows_main<V, T, 4, G>(a);
-  if (a.k <= 8) return launch_rows_main<V, T, 8, G>(a);
-  return launch_rows_main<V, T, 16, G>(a);
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  if (a.k <= kVec) return launch_rows_main<V, T, kVec>(a);
+  if (a.k <= 2 * kVec) return launch_rows_main<V, T, 2 * kVec>(a);
+  return launch_rows_main<V, T, 4 * kVec>(a);
 }
 
 template <typename V, typename T>
-int launch(const Args<T>& a, int group) {
+int launch(const Args<T>& a, int rows) {
   if (a.m <= 0 || a.n < 0 || a.k <= 0 || a.units <= 0 || a.unit <= 0 || a.nfix < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
   if (a.k == 1) {
     err = launch_spmv<V, T>(a);
-  } else if (group > 0) {
-    // the rows kernel: f32 sums only (f64 takes the columns kernel)
-    if constexpr (sizeof(T) == sizeof(double)) {
-      err = cudaErrorInvalidValue;
-    } else {
-      switch (group) {
-        case 2:
-          err = launch_rows<V, T, 2>(a);
-          break;
-        case 4:
-          err = launch_rows<V, T, 4>(a);
-          break;
-        case 8:
-          err = launch_rows<V, T, 8>(a);
-          break;
-        default:
-          err = cudaErrorInvalidValue;
-      }
-    }
+  } else if (rows != 0) {
+    err = launch_rows<V, T>(a);
   } else {
     err = launch_cols<V, T>(a);
   }
@@ -775,9 +936,8 @@ int launch(const Args<T>& a, int group) {
 }  // namespace
 
 // One entry point per value type: values V, and X, Y, alpha, beta in T.
-// `group` > 0 takes the rows kernel at K > 1 with that many lanes a row (2,
-// 4 or 8; f32 sums only), 0 the columns kernel; `unit` the merged-path
-// items of a share; `part` holds units + 1 (row, nonzero) pairs
+// `rows` != 0 takes the rows kernel at K > 1, 0 the columns kernel; `unit`
+// the merged-path items of a share; `part` holds units + 1 (row, nonzero) pairs
 // of int32, the merge-path start of each share and the end; `fix` the nfix
 // shares whose first row began in an earlier share (-1: none, padding),
 // and `fix_lo` for each the share where that row began; `carry` room for
@@ -787,7 +947,7 @@ int launch(const Args<T>& a, int group) {
 // device. Every launch goes on that stream. Returns the cudaError_t of the
 // launches (0 on success).
 #define SBLAS_SPMM_CSR_ENTRY(NAME, V, T)                                                      \
-  extern "C" int NAME(int m, int n, int k, int group, int units, int unit, int nfix,          \
+  extern "C" int NAME(int m, int n, int k, int rows, int units, int unit, int nfix,           \
                       const void* indptr, const void* indices, const void* values,            \
                       const void* part, const void* fix, const void* fix_lo, const void* x,   \
                       const void* y_in, T alpha, T beta, void* y_out, void* carry,            \
@@ -811,7 +971,7 @@ int launch(const Args<T>& a, int group) {
                     static_cast<T*>(y_out),                                                   \
                     static_cast<T*>(carry),                                                   \
                     static_cast<cudaStream_t>(stream)};                                       \
-    return launch<V, T>(a, group);                                                            \
+    return launch<V, T>(a, rows);                                                             \
   }
 
 SBLAS_SPMM_CSR_ENTRY(sblas_spmm_csr_f32, float, float)

@@ -13,21 +13,21 @@ alpha * A @ X + beta * Y`` for row-major ``X (n, K)`` and ``Y (m, K)``,
 any K (K = 1 is SpMV): f32 for f32 or bf16 values, f64 for f64 values. On
 CUDA tensors it launches the hand-written kernels of
 ``sblas_torch/csrc/spmm_csr.cu`` (see the note there: at K = 1 the merge
-SpMV; at K > 1 the columns kernel, or for f32 and bf16 values up to K = 16
-the rows kernel, :func:`rows_kernel`); on CPU tensors it runs
-:func:`spmm_csr_reference`, the plain torch version of the same function.
-There is no fallback from one to the other. :func:`spmm_csr_emulate` runs
-the kernels' own partition on the CPU (at K = 1 the lanes' runs of the
-merged path and their segmented scan, in the columns kernel its steps and
-slots, each in the kernel's order), and the carry fix-up, so that the
+SpMV; at K > 1 the rows kernel at small K, :func:`rows_kernel`, else
+the columns kernel); on CPU tensors it runs :func:`spmm_csr_reference`,
+the plain torch version of the same function. There is no fallback from
+one to the other. :func:`spmm_csr_emulate` runs the kernels' own
+partition on the CPU (at K = 1 and in the rows kernel the lanes' runs of
+the merged path and their segmented scan, in the columns kernel its steps
+and slots, each in the kernel's order), and the carry fix-up, so that the
 tests can hold that part to the plain version.
 
 Each call that launches counts once, under the kernel it launched (its
 fix-up launch included), so that a run can show its main path went
 through each: ``LAUNCHES`` and ``LAUNCHES_F64`` the merge SpMV at K = 1 of
-the f32/bf16 and the f64 build, ``LAUNCHES_ROWS`` the rows kernel (f32/bf16
-only), ``LAUNCHES_COLS`` and ``LAUNCHES_COLS_F64`` the columns kernel of
-each build.
+the f32/bf16 and the f64 build, ``LAUNCHES_ROWS`` and
+``LAUNCHES_ROWS_F64`` the rows kernel, ``LAUNCHES_COLS`` and
+``LAUNCHES_COLS_F64`` the columns kernel of each build.
 """
 
 from __future__ import annotations
@@ -38,18 +38,19 @@ import numpy as np
 import torch
 
 from ._build import entry
-from .spmv_csr import group_size, vector_dtype
+from .spmv_csr import vector_dtype
 
 LAUNCHES = 0
 LAUNCHES_F64 = 0
 LAUNCHES_ROWS = 0
+LAUNCHES_ROWS_F64 = 0
 LAUNCHES_COLS = 0
 LAUNCHES_COLS_F64 = 0
 
 # merged-path items (row ends + nonzeros) a warp takes: the rows kernel
-# and the columns kernel at K > 1, and K = 1: the fastest share sizes of
-# chip_smoke.py's unit_sweep on the H100 (PERF.md)
-UNIT = 1024
+# and the columns kernel at K > 1, and K = 1: the fastest share sizes on
+# the H100 (benchmarks/run_suite.py's unit_sweep; PERF.md)
+UNIT = 512
 UNIT_COLS = 512
 UNIT_SPMV = 256
 # lanes a warp's share is split over at K = 1, the carries one fix-up
@@ -58,10 +59,15 @@ UNIT_SPMV = 256
 WARP = 32
 SHORT_FIX = 8
 FIX_BATCH = 8
+# the rows kernel's range by the rule (rows_kernel): the largest K in
+# f32/bf16 and in f64, and in f64 the largest mean row length
+ROWS_MAX_K = 16
+ROWS_MAX_K_F64 = 4
+ROWS_MEAN_F64 = 40
 
 
 def _argtypes(scalar) -> list:
-    return [ctypes.c_int] * 7 + [                 # m n k G units unit nfix
+    return [ctypes.c_int] * 7 + [              # m n k rows units unit nfix
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # indptr..values
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # part fix fix_lo
         ctypes.c_void_p, ctypes.c_void_p,                    # x, y_in
@@ -150,9 +156,7 @@ def _shares(host_indptr: np.ndarray, unit: int, dev) -> dict:
 
 
 def prepare(t: dict, unit: int | None = None) -> dict:
-    """The operand :func:`spmm_csr` takes: ``t`` checked, plus ``"group"``
-    (the rows kernel's lanes a row,
-    :func:`~sblas_torch.ops.kernels.spmv_csr.group_size`) and three
+    """The operand :func:`spmm_csr` takes: ``t`` checked, plus three
     partitions (on ``t``'s device): ``"unit"``, ``"part"``, ``"fix"`` and
     ``"fix_lo"`` for the rows kernel at K > 1, and the same under
     ``"cols"`` for the columns kernel and under ``"spmv"`` for K = 1.
@@ -179,26 +183,50 @@ def prepare(t: dict, unit: int | None = None) -> dict:
     if unit is not None and unit < 1:
         raise ValueError(f"unit must be >= 1, got {unit}")
     host = indptr.cpu().numpy()
-    wide = _shares(host, unit or UNIT, dev)
-    cols = wide if unit else _shares(host, UNIT_COLS, dev)
-    narrow = wide if unit else _shares(host, UNIT_SPMV, dev)
-    return {**t, "group": group_size(m, indices.numel()), **wide,
-            "cols": cols, "spmv": narrow}
+    parts = {u: _shares(host, u, dev)
+             for u in {unit or UNIT, unit or UNIT_COLS, unit or UNIT_SPMV}}
+    return {**t, **parts[unit or UNIT], "cols": parts[unit or UNIT_COLS],
+            "spmv": parts[unit or UNIT_SPMV]}
 
 
 def rows_kernel(op: dict, k: int) -> bool:
-    """Does a launch with ``k > 1`` columns take the rows kernel (lane
-    groups a row) rather than the columns kernel? f64 values take the
-    columns kernel. For f32 and bf16 values an operand may name the kernel
-    (``"design": "rows"`` or ``"cols"``), as ``chip_smoke.py`` does to time
-    both; else the rule: the rows kernel up to K = 16, the fastest there on
-    the H100 (PERF.md)."""
-    if op["data"].dtype == torch.float64:
-        return False
+    """Does a launch with ``k > 1`` columns take the rows kernel (lanes on
+    runs of the merged path) rather than the columns kernel? An operand
+    may name the kernel (``"design": "rows"`` or ``"cols"``), as
+    ``chip_smoke.py`` does to time both; else :func:`rule_takes_rows`,
+    where the H100 timed the rows kernel the faster (``chip_smoke.py``
+    phases ``graph_timing`` and ``k_switch``; NVIDIA H100 80GB HBM3, 700
+    W; PERF.md), rows against columns kernel in us:
+
+    - f32 and bf16 values: up to ``ROWS_MAX_K`` = 16 columns. K = 8 / 16:
+      uk-2002@0.05 194.7 / 355.3 against 275.4 / 441.7, twitter7@0.02
+      287.0 / 534.0 against 407.1 / 698.9. At K = 32 the columns kernel:
+      801.6 against 753.8, 1,258.9 against 1,243.0.
+    - f64 values: up to ``ROWS_MAX_K_F64`` = 4 columns where rows hold at
+      most ``ROWS_MEAN_F64`` = 40 nonzeros on average. K = 2 / 4, by the
+      mean row: uk-2002@0.05 (15.6) 144.1 / 187.4 against 196.4 / 229.7,
+      twitter7@0.02 (34.2) 224.5 / 303.3 against 252.0 / 331.3; pwtk
+      (48.4) 89.9 / 121.9 against 84.4 / 109.8, cant (58.2) 37.9 / 47.8
+      against 35.7 / 45.0, powerlaw-1M-102M (101.2) 723.0 / 968.7
+      against 690.7 / 1,007.5 (within 5% either way). 40 lies in the
+      untimed gap between 34.2 and 48.4. At K = 8 the columns kernel on
+      the four timed there (uk-2002 314.3 against 309.7, twitter7 527.0
+      against 461.2, pwtk 226.8 against 163.6, cant 87.8 against
+      65.1)."""
     design = op.get("design")
     if design is not None:
         return design == "rows"
-    return k <= 16
+    return rule_takes_rows(op["data"].dtype == torch.float64, k,
+                           op["shape"][0], op["indices"].numel())
+
+
+def rule_takes_rows(f64: bool, k: int, m: int, nnz: int) -> bool:
+    """The rule of :func:`rows_kernel` for ``k > 1`` columns of a matrix
+    of ``m`` rows and ``nnz`` nonzeros, f64 values or not (f32, bf16); the
+    SpMM rule prices the merge route's X gather by it."""
+    if f64:
+        return 1 < k <= ROWS_MAX_K_F64 and nnz <= ROWS_MEAN_F64 * m
+    return 1 < k <= ROWS_MAX_K
 
 
 def shares(op: dict, k: int) -> dict:
@@ -231,8 +259,8 @@ def spmm_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
     The kernel launches on the current stream of the tensors' device, which
     must be the current device.
     """
-    global LAUNCHES, LAUNCHES_F64, LAUNCHES_ROWS, LAUNCHES_COLS, \
-        LAUNCHES_COLS_F64
+    global LAUNCHES, LAUNCHES_F64, LAUNCHES_ROWS, LAUNCHES_ROWS_F64, \
+        LAUNCHES_COLS, LAUNCHES_COLS_F64
     m, n = op["shape"]
     dev = op["indptr"].device
     vt = vector_dtype(op["data"].dtype)
@@ -254,7 +282,7 @@ def spmm_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
     carry = torch.empty((units, k), dtype=vt, device=dev)
     fn, err = entry(*_SYMBOLS[op["data"].dtype])
     rows = k > 1 and rows_kernel(op, k)
-    rc = fn(m, n, k, op["group"] if rows else 0, units, sh["unit"], nfix,
+    rc = fn(m, n, k, int(rows), units, sh["unit"], nfix,
             op["indptr"].data_ptr(), op["indices"].data_ptr(),
             op["data"].data_ptr(), sh["part"].data_ptr(),
             sh["fix"].data_ptr(), sh["fix_lo"].data_ptr(), x.data_ptr(),
@@ -270,7 +298,10 @@ def spmm_csr(op: dict, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
         else:
             LAUNCHES += 1
     elif rows:
-        LAUNCHES_ROWS += 1
+        if f64:
+            LAUNCHES_ROWS_F64 += 1
+        else:
+            LAUNCHES_ROWS += 1
     elif f64:
         LAUNCHES_COLS_F64 += 1
     else:
@@ -313,70 +344,83 @@ def spmm_csr_reference(t: dict, x: torch.Tensor, alpha: float = 1.0,
                      None if y is None else y.double()).to(x.dtype)
 
 
-def _emulate_runs(op: dict, prods: np.ndarray, dt) -> tuple:
-    """K = 1: each share's lanes walk their runs of the merged path as
-    ``spmv_merge_kernel`` does. Returns the raw row sums (the epilogue not
-    applied), a mask of the rows a share began inside (written raw), and
-    each share's carry."""
+def _emulate_lanes(op: dict, sh: dict, x: torch.Tensor, dt,
+                   fused: bool) -> tuple:
+    """Each share's 32 lanes walk their runs of ``ceil(unit / 32)``
+    merged-path items as ``spmv_merge_kernel`` (K = 1) and
+    ``spmm_rows_kernel`` (K > 1) do, all runs a step at a time: a nonzero
+    adds ``value * X[col, :]`` to the run's sums of K columns, a row end
+    closes the row; the rows open at the runs' ends meet in the segmented
+    scan over the lanes (Hillis-Steele, keyed by the open row, as the
+    shuffles add), which completes the row each lane closed first. The
+    product is rounded to ``dt`` and then added (K = 1: staged products),
+    or with ``fused`` one multiply-add (the rows kernel; the product and
+    the sum formed in f64 and rounded once for f32, twice in f64). Returns
+    the raw row sums, the mask of rows written raw, and each share's
+    carry."""
     m, _ = op["shape"]
-    sh = op["spmv"]
+    k = x.shape[1]
     part = sh["part"].cpu().numpy().astype(np.int64)
     indptr = op["indptr"].cpu().numpy().astype(np.int64)
-    unit = sh["unit"]
-    ipt = -(-unit // WARP)
-    sums = np.zeros(m, dtype=dt)
+    cols = op["indices"].cpu().numpy().astype(np.int64)
+    vt = torch.float64 if dt is np.float64 else torch.float32
+    vals = op["data"].cpu().to(vt).numpy()
+    xs = x.cpu().numpy()
+    ipt = -(-sh["unit"] // WARP)
+    units = len(part) - 1
+    # each run's items d0 .. d1 on the whole merged path; ri row ends and
+    # ni nonzeros come before its next item
+    start, end = part[:-1].sum(1), part[1:].sum(1)
+    d0 = np.minimum(start[:, None] + np.arange(WARP) * ipt,
+                    end[:, None]).ravel()
+    d1 = np.minimum(d0 + ipt, np.repeat(end, WARP))
+    ri = np.searchsorted(indptr[1:] + np.arange(m), d0, side="left")
+    ni = d0 - ri
+    ri0 = ri.copy()
+    acc = np.zeros((len(d0), k), dtype=dt)
+    first = np.zeros_like(acc)
+    closed = np.zeros(len(d0), dtype=bool)
+    out = np.zeros((m, k), dtype=dt)
+    for t in range(ipt):
+        act = d0 + t < d1
+        ends = act & (ri < m)
+        ends[ends] = indptr[ri[ends] + 1] <= ni[ends]
+        done = ends & closed            # began in this run: complete
+        out[ri[done]] = acc[done]
+        opened = ends & ~closed         # the run's first: to the scan
+        first[opened] = acc[opened]
+        closed |= ends
+        acc[ends] = 0
+        ri += ends
+        nz = act & ~ends
+        j = ni[nz]
+        if fused:
+            acc[nz] = (vals[j, None].astype(np.float64) * xs[cols[j]]
+                       + acc[nz]).astype(dt)
+        else:
+            acc[nz] = acc[nz] + (vals[j, None] * xs[cols[j]]).astype(dt)
+        ni += nz
+    v = acc.reshape(units, WARP, k)
+    key = ri.reshape(units, WARP)
+    off = 1
+    while off < WARP:
+        upd = np.zeros_like(key, dtype=bool)
+        upd[:, off:] = key[:, :-off] == key[:, off:]
+        vo = np.zeros_like(v)
+        vo[:, off:] = v[:, :-off]
+        v = np.where(upd[..., None], vo + v, v)
+        off *= 2
+    # each lane's first row: the scanned part of the run before it, plus
+    # its own
+    before = np.zeros_like(v)
+    before[:, 1:] = v[:, :-1]
+    out[ri0[closed]] = (before.reshape(-1, k) + first)[closed]
+    r0, r1 = part[:-1, 0], part[1:, 0]
+    first_cut = (r0 < r1) & (indptr[r0] < part[:-1, 1])
     raw = np.zeros(m, dtype=bool)
-    carry = np.zeros(len(part) - 1, dtype=dt)
-    for u in range(len(part) - 1):
-        (r0, j0), (r1, j1) = part[u], part[u + 1]
-        rows, nnz = r1 - r0, j1 - j0
-        total = rows + nnz
-        ends = indptr[r0 + 1:r1 + 1]
-        first_cut = indptr[r0] < j0
-        keys, vals, firsts = [], [], []
-        for lane in range(WARP):
-            d0 = min(lane * ipt, total)
-            d1 = min(d0 + ipt, total)
-            # the merge-path search along diagonal d0
-            lo, hi = max(d0 - nnz, 0), min(d0, rows)
-            while lo < hi:
-                mid = (lo + hi) // 2
-                if ends[mid] <= j0 + d0 - mid - 1:
-                    lo = mid + 1
-                else:
-                    hi = mid
-            ri, ni, ri0 = lo, d0 - lo, lo
-            run, first = dt(0), None
-            for _ in range(d0, d1):
-                if ri < rows and ends[ri] <= j0 + ni:
-                    if first is None:
-                        first = run
-                    else:
-                        sums[r0 + ri] = run
-                    run = dt(0)
-                    ri += 1
-                else:
-                    run = dt(run + prods[j0 + ni])
-                    ni += 1
-            keys.append(ri)
-            vals.append(run)
-            firsts.append((ri0, first))
-        # the segmented scan over the lanes (Hillis-Steele, keyed by the
-        # open row), as the shuffles add
-        off = 1
-        while off < WARP:
-            vals = [dt(vals[i - off] + vals[i]) if i >= off and
-                    keys[i - off] == keys[i] else vals[i]
-                    for i in range(WARP)]
-            off *= 2
-        for lane, (ri0, first) in enumerate(firsts):
-            if first is not None:
-                s = dt(vals[lane - 1] + first) if lane else first
-                sums[r0 + ri0] = s
-                raw[r0 + ri0] = ri0 == 0 and first_cut
-        if r1 < m:
-            carry[u] = vals[WARP - 1]
-    return sums, raw, carry
+    raw[r0[first_cut]] = True
+    carry = np.where((r1 < m)[:, None], v[:, WARP - 1], 0).astype(dt)
+    return out, raw, carry
 
 
 def slot_lanes(k: int) -> tuple:
@@ -449,40 +493,13 @@ def _emulate_steps(op: dict, x: torch.Tensor, dt) -> tuple:
     return out, raw, carry
 
 
-def _emulate_rows(op: dict, x: torch.Tensor) -> tuple:
-    """K > 1, the rows kernel: each share sums the part of each row it
-    holds (the kernel's lane sums and shuffle tree are not followed).
-    Returns the raw row sums, the mask of rows written raw, and each
-    share's carry, as tensors."""
-    m, _ = op["shape"]
-    k = x.shape[1]
-    part = op["part"].cpu().tolist()
-    indptr = op["indptr"].cpu().tolist()
-    _, prods = _products(op, x, x.dtype)
-    prods = prods.cpu()
-    carry = torch.zeros((len(part) - 1, k), dtype=x.dtype)
-    out = torch.zeros((m, k), dtype=x.dtype)
-    raw = torch.zeros(m, dtype=torch.bool)
-    for u, ((r0, j0), (r1, j1)) in enumerate(zip(part, part[1:])):
-        first_cut = indptr[r0] < j0
-        for r in range(r0, r1 + (1 if r1 < m else 0)):
-            s = prods[max(indptr[r], j0):min(indptr[r + 1], j1)].sum(0)
-            if r == r1:
-                carry[u] = s
-            else:
-                out[r] = s
-                raw[r] = r == r0 and first_cut
-    return out, raw, carry
-
-
 def spmm_csr_emulate(op: dict, x: torch.Tensor, alpha: float = 1.0,
                      beta: float = 0.0,
                      y: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel's partition on the CPU. At K = 1, each share's 32 lanes
-    walk their runs of the merged path and meet in the segmented scan
-    (:func:`_emulate_runs`); at K > 1 each share's slots take its nonzeros
-    in steps in the columns kernel (:func:`_emulate_steps`), and each share
-    sums its part of each row in the rows kernel (:func:`_emulate_rows`).
+    """The kernel's partition on the CPU. At K = 1 and in the rows kernel,
+    each share's 32 lanes walk their runs of the merged path and meet in
+    the segmented scan (:func:`_emulate_lanes`); in the columns kernel each
+    share's slots take its nonzeros in steps (:func:`_emulate_steps`).
     Either way the row a share ends inside goes to its carry, and a row it
     begins inside stays raw until the fix-up adds the carries of the shares
     from ``fix_lo`` to it as ``spmm_csr_fixup`` does: up to ``SHORT_FIX``
@@ -493,16 +510,11 @@ def spmm_csr_emulate(op: dict, x: torch.Tensor, alpha: float = 1.0,
     part = sh["part"].cpu().tolist()
     vt = x.dtype
     dt = np.float64 if vt == torch.float64 else np.float32
-    if k == 1:
-        _, prods = _products(op, x, vt)
-        sums, raw, carry = _emulate_runs(op, prods.cpu()[:, 0].numpy(), dt)
-        out, raw, carry = (torch.from_numpy(sums)[:, None],
-                           torch.from_numpy(raw),
-                           torch.from_numpy(carry)[:, None])
-    elif rows_kernel(op, k):
-        out, raw, carry = _emulate_rows(op, x)
+    if k == 1 or rows_kernel(op, k):
+        parts = _emulate_lanes(op, sh, x, dt, fused=k > 1)
     else:
-        out, raw, carry = map(torch.from_numpy, _emulate_steps(op, x, dt))
+        parts = _emulate_steps(op, x, dt)
+    out, raw, carry = map(torch.from_numpy, parts)
     yc = None if y is None else y.cpu()
     done = _epilogue(out, alpha, beta, yc)
     for b, lo in zip(sh["fix"].tolist(), sh["fix_lo"].tolist()):

@@ -46,11 +46,12 @@ bytes rule over three prices at ``k_hint`` (default 8) columns
 (:meth:`SpmmPlan.prices`), each with X in and Y out: ``'block'`` streams its
 blocks (:func:`bsr_stats` at ``block_rows x 128``, in the value dtype, with
 their index arrays) once; ``'merge'`` streams the CSR matrix once and
-gathers ``K`` floats of X a nonzero, of which the share ``X_GATHER`` costs
-device-memory bytes (the rest hits in L2; the constant from H100 timings,
-PERF.md); ``'spmv_passes'`` streams the CSR matrix K times. The cheapest
-wins; ``'block'`` only where, on CUDA, its blocks fit in half of the free
-device memory. For f64 it prices ``'merge'`` against ``'spmv_passes'``
+gathers ``K`` floats of X a nonzero, of which the share :func:`x_gather`
+costs device-memory bytes (the rest hits in L2; ``X_GATHER_ROWS`` where
+the f32 route runs the rows kernel, else ``X_GATHER``, constants from
+H100 timings, PERF.md); ``'spmv_passes'`` streams the CSR matrix K
+times. The cheapest wins; ``'block'`` only where, on CUDA, its blocks fit
+in half of the free device memory. For f64 it prices ``'merge'`` against ``'spmv_passes'``
 the same way at 8-byte values and vectors (the block kernel has no f64
 build), and for other dtypes (complex) it is the JAX package's XLA
 heuristic. The route is fixed when the plan
@@ -78,19 +79,35 @@ ROUTES = ("block", "merge", "pallas", "pseg", "spmv_passes", "ell",
 # every route of the JAX package has its counterpart here
 NOT_PORTED = ()
 K_HINT = 8
-# what one byte of the X rows the nnz-balanced kernels gather (K floats a
-# nonzero) costs, in streamed bytes. Their time on the FEM matrices, the
-# FEM band and the graphs, less the CSR stream, X and Y at the STREAM rate,
-# paid 0.81-1.01 of the gathered bytes, but 1.75 on consph at K = 8
-# (the rows kernel to K = 16, the columns kernel at 32; H100 80GB HBM3 at
-# 700 W, chip_smoke.py's x_gather_fit, PERF.md). Beside the tensor-core
-# block kernel, any value in 0.97-1.11 sends cant at K = 8 to merge and
-# consph (K = 8, 32) and cant and pdb1HYS at K = 32 to block, each the
-# faster there; pdb1HYS at K = 8 (merge 48.5 us, block 54.3) would need
-# less than 0.78, which sends consph at K = 8 to merge, 35% slower: 1.0
+# what one byte of the X rows the nnz-balanced kernels gather (K values
+# a nonzero) costs, in streamed bytes: their time, less the CSR stream, X
+# and Y at the STREAM rate, over the gathered bytes (chip_smoke.py's
+# x_gather_fit; H100 80GB HBM3 at 700 W, PERF.md). The columns kernel (K
+# = 32) paid 0.81-1.01: any value in 0.97-1.11 sends consph and cant and
+# pdb1HYS at K = 32 to block, each the faster there: 1.0. The rows kernel
+# pays 0.54-0.89 in f32 (0.56-0.97 in f64 on the graphs): at 0.62,
+# beside the tensor-core block kernel, the rule sends cant, consph,
+# pdb1HYS and pwtk at K = 8 and pwtk at K = 16 to merge and cant, consph
+# and pdb1HYS at K = 16 to block, each the faster there (merge 45.0,
+# 59.2, 46.0, 104.3 us against block 66.5, 85.6, 54.1, 188.1, and 201.0
+# against 212.0; block 69.7, 94.1, 58.7 against merge 76.1, 115.7,
+# 79.3), and f64 at K = 2 and 4 on the graphs to merge, faster than
+# spmv_passes (uk-2002@0.05 144.1 against 239.7 us, twitter7@0.02 224.5
+# against 377.4 at K = 2), where 1.0 picks spmv_passes at K = 2
 X_GATHER = 1.0
+X_GATHER_ROWS = 0.62
 # rows x width x K elements of X one ELL chunk gathers at most
 _ELL_CHUNK = 1 << 22
+
+
+def x_gather(k: int, f64: bool, m: int, nnz: int) -> float:
+    """The share of the merge route's X gather that the rule prices at
+    ``k`` columns of a matrix of ``m`` rows and ``nnz`` nonzeros (f64
+    values or not): ``X_GATHER_ROWS`` where the route runs the rows kernel
+    (:func:`spmm_csr.rule_takes_rows`), else ``X_GATHER``."""
+    if spmm_csr.rule_takes_rows(f64, k, m, nnz):
+        return X_GATHER_ROWS
+    return X_GATHER
 
 
 def block_stream_bytes(nblocks: int, num_brows: int, br: int,
@@ -218,27 +235,32 @@ class SpmmPlan:
 
     @staticmethod
     def prices(a: CSR, k: int, block_rows: int = 128, val_bytes: int = 4,
-               vec_bytes: int = 4) -> dict:
+               vec_bytes: int = 4, block: bool = True) -> dict:
         """Bytes each route moves for ``k`` columns by the rule's model, X
         in and Y out included (``vec_bytes`` an entry: 4 in f32, 8 in
-        f64): ``{"block", "merge", "spmv_passes"}``, and the block stream
-        alone as ``"block_stream"``."""
+        f64): ``{"merge", "spmv_passes"}``, and with ``block`` also
+        ``"block"``, the block stream alone as ``"block_stream"`` and the
+        blocks' ``"density"`` (a pass over the matrix's block ids)."""
         m, n = a.shape
-        br = block_rows
-        st = bsr_stats(a, br=br, bc=BLOCK_COLS)
-        stream = block_stream_bytes(st["nblocks"], -(-max(m, 1) // br), br,
-                                    val_bytes)
         xy = (n + m) * k * vec_bytes
-        return {"block": stream + xy, "block_stream": stream,
-                "density": st["density"],
-                "merge": csr_stream_bytes(m, a.nnz, val_bytes)
-                + int(X_GATHER * a.nnz * k * vec_bytes) + xy,
-                "spmv_passes": k * csr_bytes_per_iter(m, n, a.nnz,
-                                                      val_bytes, vec_bytes)}
+        out = {"merge": csr_stream_bytes(m, a.nnz, val_bytes)
+               + int(x_gather(k, vec_bytes == 8, m, a.nnz) * a.nnz * k
+                     * vec_bytes) + xy,
+               "spmv_passes": k * csr_bytes_per_iter(m, n, a.nnz,
+                                                     val_bytes, vec_bytes)}
+        if block:
+            br = block_rows
+            st = bsr_stats(a, br=br, bc=BLOCK_COLS)
+            stream = block_stream_bytes(st["nblocks"], -(-max(m, 1) // br),
+                                        br, val_bytes)
+            out.update(block=stream + xy, block_stream=stream,
+                       density=st["density"])
+        return out
 
     def _pick(self, a: CSR, value_dtype) -> tuple[str, str]:
         if a.dtype == np.float64:
-            p = self.prices(a, self.k_hint, self.block_rows, 8, 8)
+            p = self.prices(a, self.k_hint, self.block_rows, 8, 8,
+                            block=False)
             routes = ("merge", "spmv_passes")
             method = min(routes, key=lambda r: p[r])
             ref, why = xla_heuristic(a)

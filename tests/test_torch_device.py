@@ -150,7 +150,8 @@ def _csr_launches(f64=False):
     """Launches so far of the nnz-balanced kernel's f32/bf16 (or f64)
     build, each counted under the one kernel it launched."""
     if f64:
-        return ckern.LAUNCHES_F64 + ckern.LAUNCHES_COLS_F64
+        return ckern.LAUNCHES_F64 + ckern.LAUNCHES_ROWS_F64 + \
+            ckern.LAUNCHES_COLS_F64
     return ckern.LAUNCHES + ckern.LAUNCHES_ROWS + ckern.LAUNCHES_COLS
 
 
@@ -249,9 +250,9 @@ def _card_pair(n, m, k, dtype, cuda):
                                  torch.float64])
 @pytest.mark.parametrize("name", ["long_rows", "powerlaw", "empty_rows"])
 def test_merge_kernels_at_every_k_on_card(cuda, name, vdt, design):
-    # both K > 1 kernels of csrc/spmm_csr.cu (f64 takes the columns kernel
-    # whatever the operand names) at every K, shares of the rule's size and
-    # of 5 items; the same bits on a second call
+    # both K > 1 kernels of csrc/spmm_csr.cu, each build, at every K,
+    # shares of the rule's size and of 5 items; the same bits on a second
+    # call
     a = CSR_MATRICES[name]()
     f64 = vdt == torch.float64
     if f64:
@@ -262,13 +263,13 @@ def test_merge_kernels_at_every_k_on_card(cuda, name, vdt, design):
         op = {**op, "design": design}
         for k in KS:
             cols = not ckern.rows_kernel(op, k)
-            assert cols == (f64 or design == "cols")
+            assert cols == (design == "cols")
             x, y = _card_pair(n, m, k, np.float64 if f64 else np.float32,
                               cuda)
             for args in (((1 / 3) if f64 else 2.5, -0.5, y),
                          (1.0, 0.0, None)):
-                counter = ("LAUNCHES_ROWS" if not cols else
-                           "LAUNCHES_COLS_F64" if f64 else "LAUNCHES_COLS")
+                counter = ("LAUNCHES_COLS" if cols else "LAUNCHES_ROWS") \
+                    + ("_F64" if f64 else "")
                 before = _csr_launches(f64)
                 before_k = getattr(ckern, counter)
                 got = ckern.spmm_csr(op, x, *args)
@@ -288,6 +289,41 @@ def test_merge_kernels_at_every_k_on_card(cuda, name, vdt, design):
             assert rel_err(got.cpu().numpy(), ckern.spmm_csr_reference(
                 op, x).cpu().numpy()) <= (KERNEL_TOL_F64 if f64
                                           else KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+@pytest.mark.parametrize("name", ["banded", "empty_rows", "long_rows",
+                                  "powerlaw"])
+def test_rows_kernel_at_small_k_on_card(cuda, name, vdt):
+    # the rows kernel, each build, at the K the rule gives it (K = 5 and 13
+    # fill part of a 16-byte X row), with and without Y, at the rule's
+    # share size and at 5 items, against its plain version; the same bits
+    # over 20 calls at K = 8
+    a = CSR_MATRICES[name]()
+    f64 = vdt == torch.float64
+    if f64:
+        a = a.astype(np.float64)
+    m, n = a.shape
+    raw = to_device(a, cuda, None if f64 else vdt)
+    counter = "LAUNCHES_ROWS_F64" if f64 else "LAUNCHES_ROWS"
+    tol = KERNEL_TOL_F64 if f64 else KERNEL_TOL
+    for op in (ckern.prepare(raw), ckern.prepare(raw, 5)):
+        op = {**op, "design": "rows"}
+        for k in (2, 3, 5, 8, 13, 16):
+            x, y = _card_pair(n, m, k, np.float64 if f64 else np.float32,
+                              cuda)
+            for args in ((1 / 3, -0.5, y), (2.5, 0.0, None)):
+                before = getattr(ckern, counter)
+                got = ckern.spmm_csr(op, x, *args)
+                torch.cuda.synchronize()
+                assert getattr(ckern, counter) == before + 1
+                want = ckern.spmm_csr_reference(op, x, *args)
+                assert rel_err(got.cpu().numpy(), want.cpu().numpy()) <= tol
+                if k == 8:
+                    assert all(torch.equal(ckern.spmm_csr(op, x, *args), got)
+                               for _ in range(20))
 
 
 @pytest.mark.cuda
@@ -317,15 +353,17 @@ def test_block_tensor_cores_at_every_k_on_card(cuda, vdt, br):
 
 @pytest.mark.cuda
 def test_redesigned_kernels_do_not_spill(cuda):
-    # the columns kernel and the tensor-core block kernel, every
+    # the columns kernel (3 builds x 7 slot shapes), the rows kernel (3
+    # builds x 3 column chunks) and the tensor-core block kernel, every
     # instantiation, from the compiler's own report
     from sblas_torch.ops.kernels import _build
 
     lib = _build.build()
     report = _build.ptxas_report(lib.with_suffix(".log").read_text())
     new = [r for r in report if "spmm_merge_kernel" in r["kernel"]
+           or "spmm_rows_kernel" in r["kernel"]
            or "spmm_bsr_tc" in r["kernel"]]
-    assert len(new) == 3 * 7 + 2 * 2 * 3
+    assert len(new) == 3 * 7 + 3 * 3 + 2 * 2 * 3
     assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in new), new
 
 

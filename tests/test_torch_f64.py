@@ -38,6 +38,7 @@ from sblas_torch.formats import from_reference, to_device
 from sblas_torch.ops.kernels import spmm_csr as ckern
 from sblas_torch.ops.kernels import spmv_csr as kern
 from sblas_torch.ops.kernels import sptrsv_csr as skern
+from sblas_torch.ops.spmm import X_GATHER_ROWS
 from sblas_torch.ops.spmv import csr_bytes_per_iter, f32_rule
 from sblas_torch.ops.sptrsv import syncfree_bytes
 from sblas_torch.utils.timing import FP32_FLOPS, FP64_FLOPS, peak_flops
@@ -465,12 +466,14 @@ def test_csr_bytes_model_counts_f64_by_hand():
     assert plan.bytes_per_call(2) == 2 * (5 * 12 + 4 * 4) + (3 + 3) * 2 * 8
     assert SpmmPlan.prices(a, 2, val_bytes=8, vec_bytes=8)["spmv_passes"] \
         == 2 * hand
-    # merge (auto's pick at k_hint = 8): the matrix once, X in and Y out
+    # merge (auto's pick at k_hint = 8): the matrix once, X in and Y out;
+    # the rule prices its X gather (5 nonzeros x 2 columns) at the rows
+    # kernel's share, which K = 2 runs on rows this short
     plan = SpmmPlan(a, device="cpu")
     assert plan.method == "merge"
     assert plan.bytes_per_call(2) == 5 * 12 + 4 * 4 + (3 + 3) * 2 * 8
     assert SpmmPlan.prices(a, 2, val_bytes=8, vec_bytes=8)["merge"] == \
-        5 * 12 + 4 * 4 + 5 * 2 * 8 + (3 + 3) * 2 * 8
+        5 * 12 + 4 * 4 + int(X_GATHER_ROWS * 5 * 2 * 8) + (3 + 3) * 2 * 8
 
 
 def test_syncfree_bytes_model_counts_f64_by_hand():

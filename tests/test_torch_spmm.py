@@ -31,8 +31,9 @@ from sblas.ops.spmm import SpmmPlan as RefPlan
 from sblas.ops.spmm import spmm as ref_spmm
 from sblas_torch.formats import CSR, from_reference
 from sblas_torch.ops.kernels import spmm_bsr as bkern
-from sblas_torch.ops.spmm import (_PLAN_CACHE, NOT_PORTED, ROUTES, X_GATHER,
-                                  SpmmPlan, block_stream_bytes, spmm)
+from sblas_torch.ops.spmm import (_PLAN_CACHE, NOT_PORTED, ROUTES,
+                                  SpmmPlan, block_stream_bytes, spmm,
+                                  x_gather)
 from sblas_torch.ops.spmv import csr_bytes_per_iter
 from sblas_torch.retile_bsr import pack_bsr
 
@@ -237,7 +238,7 @@ def test_auto_rule_is_the_bytes_model():
         prices = {
             "block": block_stream_bytes(b.nblocks, b.num_brows, br, vb) + xy,
             "merge": a.nnz * (vb + 4) + (m + 1) * 4
-            + int(X_GATHER * a.nnz * k * 4) + xy,
+            + int(x_gather(k, False, m, a.nnz) * a.nnz * k * 4) + xy,
             "spmv_passes": k * csr_bytes_per_iter(m, n, a.nnz, vb)}
         assert plan.method == min(prices, key=prices.get)
 
