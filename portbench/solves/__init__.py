@@ -1,0 +1,8 @@
+"""The general solve loops that a traffic mix's data file names by
+``"solver"``: each module's ``Solves(inputs, params, seed, device,
+spans, control=False)`` builds the port's objects (``build``), runs solve
+``i`` of the window (``solve``), frees the port's state (``release``) and
+then holds what it kept to the plain reference (``compare``).
+
+``control=True`` builds the port's own lower-precision path instead
+(``params["control"]``), for :mod:`portbench.control` only."""
