@@ -129,7 +129,7 @@ DIST_AB = (2.5, -0.5)
 DIST_TOL = 2e-5
 
 
-# the launch counters (``bench_lib.COUNTERS``) of each local route's kernel
+# the launch counters (``trace.COUNTERS``) of each local route's kernel
 # builds: a dist plan's call must move one of its route's, of its dtype
 ROUTE_COUNTERS = {"csr": ("spmv_csr", "spmv_csr_f64"),
                   "block": ("spmm_bsr",),
@@ -146,13 +146,12 @@ def _window(call) -> tuple:
     moved)``."""
     import torch
 
-    from sblas_torch.bench_lib import COUNTERS, launch_counts
+    from sblas_torch import trace
 
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    trace.reset()
     out = call()
     torch.cuda.synchronize()
-    return out, {k: v for k, v in launch_counts().items() if v}
+    return out, {k: v for k, v in trace.launch_counts().items() if v}
 
 
 def _check_routes(label: str, methods, moved: dict, f64: bool) -> None:
@@ -437,9 +436,8 @@ def dist_phase(mats: dict, poisson, chol: dict, card: str,
     import torch.distributed as dist
 
     from sblas_torch import parallel as par
-    from sblas_torch import solvers
-    from sblas_torch.bench_lib import (COUNTERS, EPS, bench_dist_spmv,
-                                       dist_seconds)
+    from sblas_torch import solvers, trace
+    from sblas_torch.bench_lib import EPS, bench_dist_spmv, dist_seconds
     from sblas_torch.ops.spmm import SpmmPlan
     from sblas_torch.ops.spmv import SpmvPlan
     from sblas_torch.ops.sptrsv import get_plan as get_sptrsv_plan
@@ -453,7 +451,7 @@ def dist_phase(mats: dict, poisson, chol: dict, card: str,
     if (mesh.size, mesh.backend) != (1, "nccl"):
         raise RuntimeError(f"dist: a world of one over nccl expected, got "
                            f"{mesh.size} over {mesh.backend}")
-    launches = dict.fromkeys(COUNTERS, 0)
+    launches = dict.fromkeys(trace.COUNTERS, 0)
 
     def add(rec):
         for k, v in rec["launches"].items():
@@ -717,9 +715,10 @@ def main() -> int:
     from sblas_torch import datasets
     from sblas_torch import solvers
     from sblas_torch import cli
-    from sblas_torch.bench_lib import (COUNTERS, EPS, SOLVE_TOL,
-                                       bench_solver, bench_spmm, bench_spmv,
-                                       bench_sptrsm, bench_sptrsv)
+    from sblas_torch import trace
+    from sblas_torch.bench_lib import (EPS, SOLVE_TOL, bench_solver,
+                                       bench_spmm, bench_spmv, bench_sptrsm,
+                                       bench_sptrsv)
     from sblas_torch.benchmarks import run_suite
     from sblas_torch.examples import cg as ex_cg
     from sblas_torch.examples import convection_ilu as ex_ilu
@@ -755,11 +754,10 @@ def main() -> int:
     f64_tol = 1e-13
     t_start = time.perf_counter()
     # each kernel build's launch count: (wrapper module, counter)
-    kernels = dict(COUNTERS)
+    kernels = dict(trace.COUNTERS)
 
     def launched(kname):
-        mod, attr = kernels[kname]
-        return getattr(mod, attr)
+        return trace.launch_counts()[kname]
 
     def vec(*shape):
         return rng.standard_normal(shape).astype(np.float32)
@@ -1252,8 +1250,7 @@ def main() -> int:
               "checks": res})
 
     def reset():
-        for mod, attr in kernels.values():
-            setattr(mod, attr, 0)
+        trace.reset()
 
     def counts():
         torch.cuda.synchronize()

@@ -38,7 +38,7 @@ import torch
 from .formats import CSR, as_torch_dtype
 from .golden import (rel_err, spmm_golden, spmv_golden, sptrsv_golden,
                      value_tol)
-from .ops.kernels import spmm_bsr, spmm_csr, spmv_csr, sptrsv_csr
+from .ops.kernels import spmm_csr, spmv_csr, sptrsv_csr
 from .ops.spmm import SpmmPlan
 from .ops.spmv import SpmvPlan
 from .ops.sptrsm import SptrsmPlan
@@ -425,26 +425,6 @@ def bench_dist_spmv(a: CSR, mesh=None, *, strategy: str = "nnz_balanced",
     return BenchRecord(name=name, seconds_per_iter=max(us) * 1e-6,
                        flops=2.0 * a.nnz, bytes=plan.bytes_per_iter,
                        extra=extra)
-
-
-# each kernel build's launch count: (wrapper module, counter). A wrapper
-# adds one where it launches its kernel on the card, and nowhere else
-COUNTERS = {"spmv_csr": (spmv_csr, "LAUNCHES"),
-            "spmv_csr_f64": (spmv_csr, "LAUNCHES_F64"),
-            "spmm_bsr": (spmm_bsr, "LAUNCHES"),
-            "spmm_csr": (spmm_csr, "LAUNCHES"),
-            "spmm_csr_f64": (spmm_csr, "LAUNCHES_F64"),
-            "spmm_csr_rows": (spmm_csr, "LAUNCHES_ROWS"),
-            "spmm_csr_rows_f64": (spmm_csr, "LAUNCHES_ROWS_F64"),
-            "spmm_csr_cols": (spmm_csr, "LAUNCHES_COLS"),
-            "spmm_csr_cols_f64": (spmm_csr, "LAUNCHES_COLS_F64"),
-            "sptrsv_csr": (sptrsv_csr, "LAUNCHES"),
-            "sptrsv_csr_f64": (sptrsv_csr, "LAUNCHES_F64")}
-
-
-def launch_counts() -> dict:
-    """Every kernel build's launches so far, by name."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def _launches() -> tuple[int, int]:

@@ -55,7 +55,7 @@ import torch
 
 from .. import datasets, solvers
 from ..bench_lib import (EPS, bench_solver, bench_spmm, bench_spmv,
-                         bench_sptrsm, bench_sptrsv, launch_counts)
+                         bench_sptrsm, bench_sptrsv)
 from ..golden import KERNEL_TOL, rel_err
 from ..matrix_cache import cached_matrix
 from ..native import BUILD_DIR
@@ -64,6 +64,7 @@ from ..ops.kernels import spmm_csr as ckern
 from ..ops.kernels import sptrsv_csr as skern
 from ..ops.spmv import SpmvPlan
 from ..ops.sptrsv import get_plan as sptrsv_plan
+from ..trace import launch_counts
 from ..utils.timing import (BenchRecord, measure_host_seconds,
                             measure_seconds_per_iter, stream_bandwidth)
 

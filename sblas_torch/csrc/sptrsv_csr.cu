@@ -90,6 +90,33 @@
 //
 // Flags and the ticket are cleared with cudaMemsetAsync on the launch's
 // stream before each solve, so a solve can be captured in a CUDA graph.
+//
+// The counting variant, sptrsv_syncfree_counted, is launched where the
+// caller passes a counts buffer (sblas_torch/trace.py: one solve launch in
+// seven while a profiler records). Both kernels are one body,
+// solve_rows<T, KC, kCount>: in the plain one (kCount false) every mark is
+// an empty inline call, and its registers and SASS are those of the body
+// alone. The counting one runs the same rows with the same arithmetic, so
+// it gives the same bits, and splits each row's cycles from its ticket to
+// its release store into five steps: load (the row's pattern and its first
+// flags in hand), wait (the poll loop, until no flag is pending), fence,
+// gather (the x reads and FMAs) and store (the shuffle tree, the x write
+// and the release store). It also counts rows and polls (wait_flag calls).
+// Lane i keeps the sum of count i in a register; after the row's release
+// store lanes 0-6 add theirs into the ticket's slot of the buffer, in one
+// reduction the warp does not wait for.
+//
+// What counting costs, timed on an H100 against the plain kernel on
+// hpcg-256's IC(0) factors (16.8M rows): this design +7.9%, of which
+// keeping the sums is +2.3% and the reduction the rest. A block retires
+// with its last warp, and whatever a warp does after its release store
+// delays that; each other way of getting the sums out measured dearer, or
+// not exact: a plain store to a record a row (n x 32 bytes, summed later)
+// +4.3%; a bulk reduction a row (cp.reduce.async.bulk, waiting until its
+// record is read out of shared memory) +6.1%; the block's sums through a
+// barrier +9.7-11.7%, through a shared atomic that finds the block's last
+// warp +10.9-14.8%; seven sums a lane +2.8% before any reduction. Hence one
+// launch in seven.
 
 #include <cuda_runtime.h>
 
@@ -104,6 +131,11 @@ constexpr unsigned kFull = 0xffffffffu;
 // happen for a valid triangular CSR; if it does, the launch fails (trap)
 // instead of holding the card.
 constexpr long long kMaxPolls = 1ll << 26;
+// the counting variant's sums, the columns of a slot of its buffer
+// (sblas_torch/trace.py: SOLVE_COUNTS, SOLVE_SLOTS, SOLVE_COLUMNS)
+enum Count { kLoad, kWait, kFence, kGather, kStore, kRows, kPolls, kCounts };
+constexpr int kCountSlots = 256;
+constexpr int kCountColumns = 8;
 
 __device__ __forceinline__ int load_relaxed(const int* p) {
   int v;
@@ -126,6 +158,71 @@ __device__ __forceinline__ void store_release(int* p, int v) {
                : "memory");
 }
 
+// The counting variant's clock. Lane i keeps the sum of Count i (lanes
+// 0-6; the others keep nothing), so that the counts take two registers a
+// lane and not seven: mark(step) adds the cycles since the last mark on
+// the step's lane. 32-bit: a row's steps take far fewer than 2^32 cycles
+// (2 s). Each mark follows the first use of what its step loaded, where
+// the warp stalls until the data is in hand. RowClock<false>, the plain
+// kernel's, does nothing.
+template <bool kCount>
+struct RowClock {
+  __device__ __forceinline__ void start(int) {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void open_wait() {}
+  __device__ __forceinline__ void mark_check() {}
+  __device__ __forceinline__ void poll() {}
+  __device__ __forceinline__ void add_to(unsigned long long*, long long) {}
+};
+
+template <>
+struct RowClock<true> {
+  int lane;
+  unsigned sum;  // this lane's Count
+  unsigned last;
+  bool waiting;  // the poll loop's next check closes the wait, not the load
+
+  __device__ __forceinline__ static unsigned now() {
+    long long c;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(c));
+    return static_cast<unsigned>(c);
+  }
+  __device__ __forceinline__ void start(int lane_) {
+    lane = lane_;
+    sum = lane == kRows;
+    last = now();
+  }
+  __device__ __forceinline__ void mark(int step) {
+    const unsigned c = now();
+    if (lane == step) sum += c - last;
+    last = c;
+  }
+  // the poll loop is entered: its first check closes the load
+  __device__ __forceinline__ void open_wait() { waiting = false; }
+  // a check of the poll loop: the first closes the load, each later one a
+  // stretch of the wait
+  __device__ __forceinline__ void mark_check() {
+    if (waiting) {
+      mark(kWait);
+    } else {
+      mark(kLoad);
+      waiting = true;
+    }
+  }
+  __device__ __forceinline__ void poll() {
+    if (lane == kPolls) ++sum;
+  }
+  // after the row's release store, ticket t: lanes 0-6 add their sums
+  // into the ticket's slot, one reduction whose result the warp does not
+  // wait for
+  __device__ __forceinline__ void add_to(unsigned long long* counts,
+                                         long long t) {
+    if (lane < kCounts)
+      atomicAdd(counts + (t % kCountSlots) * kCountColumns + lane,
+                static_cast<unsigned long long>(sum));
+  }
+};
+
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
 }
@@ -134,15 +231,16 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// T: the type of the values, inv_diag, b, x and the sums (float or double)
-template <typename T, int KC>
-__global__ void __launch_bounds__(kBlock)
-sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
-                const int* __restrict__ indices,
-                const T* __restrict__ values,
-                const T* __restrict__ inv_diag,
-                const int* __restrict__ perm, const T* __restrict__ b, T* x,
-                int* flags) {
+// The rows of one block: the body of the plain kernel (kCount false,
+// counts null) and of its counting variant (kCount true; see the note at
+// the top). T: the type of the values, inv_diag, b, x and the sums (float
+// or double).
+template <typename T, int KC, bool kCount>
+__device__ __forceinline__ void solve_rows(
+    int n, int k, int lower, const int* __restrict__ indptr,
+    const int* __restrict__ indices, const T* __restrict__ values,
+    const T* __restrict__ inv_diag, const int* __restrict__ perm,
+    const T* __restrict__ b, T* x, int* flags, unsigned long long* counts) {
   __shared__ int block_ticket;
   int* ticket = flags + n;
   if (threadIdx.x == 0) block_ticket = atomicAdd(ticket, 1);
@@ -151,6 +249,8 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
   const long long t =
       static_cast<long long>(block_ticket) * kWarps + (threadIdx.x >> 5);
   if (t >= n) return;  // the whole warp leaves together
+  RowClock<kCount> clk;
+  clk.start(lane);
   const int row = __ldg(perm + t);
   const int begin = __ldg(indptr + row);
   const int end = __ldg(indptr + row + 1);
@@ -185,7 +285,10 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
         }
         any |= dep(col[q]);
       }
-      if (!__any_sync(kFull, any)) continue;
+      if (!__any_sync(kFull, any)) {
+        clk.mark(kLoad);
+        continue;
+      }
       int ready[kBatch];
 #pragma unroll
       for (int q = 0; q < kBatch; ++q)
@@ -194,6 +297,7 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
       // diagonal, then each lane checks its own flags again, until none is
       // pending: one poller a warp, not one a pending entry, so that a
       // window of waiting warps does not flood L2 with polls.
+      clk.open_wait();
       while (true) {
         int latest = -1;
 #pragma unroll
@@ -201,7 +305,9 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
           if (ready[q] == 0)
             latest = max(latest, lower ? col[q] : n - 1 - col[q]);
         latest = __reduce_max_sync(kFull, latest);
+        clk.mark_check();
         if (latest < 0) break;
+        clk.poll();
         if (lane == 0) wait_flag(flags + (lower ? latest : n - 1 - latest));
         __syncwarp();
 #pragma unroll
@@ -209,6 +315,7 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
           if (ready[q] == 0) ready[q] = load_relaxed(flags + col[q]);
       }
       fence_acq_rel();  // the x reads below see what the flags released
+      clk.mark(kFence);
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         if (dep(col[q])) {
@@ -218,6 +325,7 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
             if (p < w) acc[p] = fma_t(val[q], __ldcg(xc + p), acc[p]);
         }
       }
+      clk.mark(kGather);  // each FMA waited on its x
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -230,19 +338,59 @@ sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
       for (int p = 0; p < KC; ++p)
         if (p < w) x[base + c0 + p] = (__ldg(b + base + c0 + p) - acc[p]) * inv;
     }
+    if (c0 + KC < k) clk.mark(kStore);  // the last chunk's, below
   }
   // lane 0 wrote every x of the row: its release store orders them
   // before the flag
   if (lane == 0) store_release(flags + row, 1);
+  clk.mark(kStore);
+  clk.add_to(counts, t);
+}
+
+template <typename T, int KC>
+__global__ void __launch_bounds__(kBlock)
+sptrsv_syncfree(int n, int k, int lower, const int* __restrict__ indptr,
+                const int* __restrict__ indices,
+                const T* __restrict__ values,
+                const T* __restrict__ inv_diag,
+                const int* __restrict__ perm, const T* __restrict__ b, T* x,
+                int* flags) {
+  solve_rows<T, KC, false>(n, k, lower, indptr, indices, values, inv_diag,
+                           perm, b, x, flags, nullptr);
+}
+
+// The counting variant (see the note at the top): counts holds
+// kCountSlots slots of kCountColumns 64-bit sums (Count), added to.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kBlock)
+sptrsv_syncfree_counted(int n, int k, int lower,
+                        const int* __restrict__ indptr,
+                        const int* __restrict__ indices,
+                        const T* __restrict__ values,
+                        const T* __restrict__ inv_diag,
+                        const int* __restrict__ perm,
+                        const T* __restrict__ b, T* x, int* flags,
+                        unsigned long long* counts) {
+  solve_rows<T, KC, true>(n, k, lower, indptr, indices, values, inv_diag,
+                          perm, b, x, flags, counts);
 }
 
 template <typename T, int KC>
 cudaError_t launch_chunk(int n, int k, int lower, const void* indptr,
                          const void* indices, const void* values,
                          const void* inv_diag, const void* perm,
-                         const void* b, void* x, void* flags,
+                         const void* b, void* x, void* flags, void* counts,
                          cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kWarps - 1) / kWarps);
+  if (counts != nullptr) {
+    sptrsv_syncfree_counted<T, KC><<<blocks, kBlock, 0, stream>>>(
+        n, k, lower, static_cast<const int*>(indptr),
+        static_cast<const int*>(indices), static_cast<const T*>(values),
+        static_cast<const T*>(inv_diag), static_cast<const int*>(perm),
+        static_cast<const T*>(b), static_cast<T*>(x),
+        static_cast<int*>(flags), static_cast<unsigned long long*>(counts));
+    return cudaGetLastError();
+  }
   sptrsv_syncfree<T, KC><<<blocks, kBlock, 0, stream>>>(
       n, k, lower, static_cast<const int*>(indptr),
       static_cast<const int*>(indices), static_cast<const T*>(values),
@@ -254,7 +402,7 @@ cudaError_t launch_chunk(int n, int k, int lower, const void* indptr,
 template <typename T>
 int solve(int n, int k, int lower, const void* indptr, const void* indices,
           const void* values, const void* inv_diag, const void* perm,
-          const void* b, void* x, void* flags, void* stream) {
+          const void* b, void* x, void* flags, void* counts, void* stream) {
   if (n <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
   // the widest chunk: 16 columns, 8 in f64 (see the note at the top)
   constexpr int kWide = sizeof(T) == sizeof(double) ? 8 : 16;
@@ -264,19 +412,19 @@ int solve(int n, int k, int lower, const void* indptr, const void* indices,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k == 1) {
     err = launch_chunk<T, 1>(n, k, lower, indptr, indices, values, inv_diag,
-                             perm, b, x, flags, s);
+                             perm, b, x, flags, counts, s);
   } else if (k == 2) {
     err = launch_chunk<T, 2>(n, k, lower, indptr, indices, values, inv_diag,
-                             perm, b, x, flags, s);
+                             perm, b, x, flags, counts, s);
   } else if (k <= 4) {
     err = launch_chunk<T, 4>(n, k, lower, indptr, indices, values, inv_diag,
-                             perm, b, x, flags, s);
+                             perm, b, x, flags, counts, s);
   } else if (k <= 8) {
     err = launch_chunk<T, 8>(n, k, lower, indptr, indices, values, inv_diag,
-                             perm, b, x, flags, s);
+                             perm, b, x, flags, counts, s);
   } else {
     err = launch_chunk<T, kWide>(n, k, lower, indptr, indices, values,
-                                 inv_diag, perm, b, x, flags, s);
+                                 inv_diag, perm, b, x, flags, counts, s);
   }
   return static_cast<int>(err);
 }
@@ -287,23 +435,25 @@ int solve(int n, int k, int lower, const void* indptr, const void* indices,
 // or f64); `lower` selects the side (1 lower, 0 upper). `perm` (n ints)
 // is the order rows are solved in, each row after all its dependencies.
 // `flags` holds n + 1 ints of scratch (the rows' flags, then the ticket),
-// cleared here on `stream` before the launch. Pointers are device pointers
-// on the current device. Returns the cudaError_t of the memset or the
-// launch (0 on success).
+// cleared here on `stream` before the launch. `counts`: null for the plain
+// kernel, else the counting variant's buffer (kCountSlots x kCountColumns
+// unsigned 64-bit sums, added to). Pointers are device pointers on the
+// current device. Returns the cudaError_t of the memset or the launch (0
+// on success).
 extern "C" int sblas_sptrsv_csr_f32(int n, int k, int lower,
                                     const void* indptr, const void* indices,
                                     const void* values, const void* inv_diag,
                                     const void* perm, const void* b, void* x,
-                                    void* flags, void* stream) {
+                                    void* flags, void* counts, void* stream) {
   return solve<float>(n, k, lower, indptr, indices, values, inv_diag, perm,
-                      b, x, flags, stream);
+                      b, x, flags, counts, stream);
 }
 
 extern "C" int sblas_sptrsv_csr_f64(int n, int k, int lower,
                                     const void* indptr, const void* indices,
                                     const void* values, const void* inv_diag,
                                     const void* perm, const void* b, void* x,
-                                    void* flags, void* stream) {
+                                    void* flags, void* counts, void* stream) {
   return solve<double>(n, k, lower, indptr, indices, values, inv_diag, perm,
-                       b, x, flags, stream);
+                       b, x, flags, counts, stream);
 }

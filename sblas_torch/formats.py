@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .trace import span
+
 INDEX_DTYPE = np.int32
 HOST_VALUE_DTYPES = (np.float32, np.float64, np.complex64, np.complex128)
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
@@ -96,6 +98,7 @@ class CSR:
     indices: np.ndarray
     data: np.ndarray
 
+    @span("sblas.CSR", "build")
     def __post_init__(self):
         object.__setattr__(self, "indptr", _check_index(self.indptr))
         object.__setattr__(self, "indices", _check_index(self.indices))
@@ -117,11 +120,13 @@ class CSR:
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.indptr)
 
+    @span("sblas.CSR.row_ids", "convert")
     def row_ids(self) -> np.ndarray:
         """Per-nnz row index (the COO row array in CSR order)."""
         return np.repeat(np.arange(self.shape[0], dtype=INDEX_DTYPE),
                          self.row_lengths)
 
+    @span("sblas.CSR.tocoo", "convert")
     def tocoo(self) -> COO:
         return COO(self.shape, self.row_ids(), self.indices.copy(),
                    self.data.copy())
@@ -196,6 +201,7 @@ class CSC:
                              shape=self.shape)
 
 
+@span("sblas.coo_to_csr", "convert")
 def coo_to_csr(a: COO, *, sum_duplicates: bool = True) -> CSR:
     """Sort triplets by (row, col), optionally merge duplicates, compress
     rows."""
@@ -223,6 +229,7 @@ def coo_to_csc(a: COO) -> CSC:
     return CSC(a.shape, t.indptr, t.indices, t.data)
 
 
+@span("sblas.csr_transpose", "convert")
 def csr_transpose(a: CSR) -> CSR:
     """CSR of A^T. A stable sort of the nonzeros by column is exactly the
     transpose's CSR order: grouped by column, each column in row order."""
@@ -234,6 +241,7 @@ def csr_transpose(a: CSR) -> CSR:
     return CSR((n, m), indptr, a.row_ids()[order], a.data[order])
 
 
+@span("sblas.tril", "convert")
 def tril(a: CSR, k: int = 0, *, unit_diagonal: bool = False) -> CSR:
     """The lower-triangular part (col <= row + k). ``unit_diagonal`` sets
     the stored diagonal entries to exactly 1."""
@@ -248,6 +256,7 @@ def tril(a: CSR, k: int = 0, *, unit_diagonal: bool = False) -> CSR:
     return out
 
 
+@span("sblas.triu", "convert")
 def triu(a: CSR, k: int = 0) -> CSR:
     """The upper-triangular part (col >= row + k)."""
     coo = a.tocoo()
@@ -312,6 +321,13 @@ def check_uploadable(a: CSR, value_dtype=None) -> torch.dtype:
     return vd
 
 
+@span("sblas.cast", "convert")
+def cast(values: np.ndarray, dtype) -> np.ndarray:
+    """``values.astype(dtype)``, a value cast of the set-up."""
+    return values.astype(dtype)
+
+
+@span("sblas.upload", "upload")
 def upload(arr: np.ndarray, device) -> torch.Tensor:
     """A contiguous numpy array as a tensor on ``device``. A read-only array
     (a matrix loaded memory-mapped, ``matrix_cache``) is copied: to the card
@@ -327,6 +343,7 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
         return torch.from_numpy(arr).to(device)
 
 
+@span("sblas.to_device", "upload")
 def to_device(a: CSR, device, value_dtype=None) -> dict:
     """Upload ``a`` to ``device``.
 
@@ -339,9 +356,12 @@ def to_device(a: CSR, device, value_dtype=None) -> dict:
     """
     vd = check_uploadable(a, value_dtype)
     device = torch.device(device)
-    return {
+    out = {
         "shape": tuple(a.shape),
         "indptr": upload(a.indptr.astype(INDEX_DTYPE, copy=False), device),
         "indices": upload(a.indices.astype(INDEX_DTYPE, copy=False), device),
-        "data": upload(a.data, device).to(vd),
     }
+    data = upload(a.data, device)
+    with span("sblas.cast", "convert"):
+        out["data"] = data.to(vd)
+    return out

@@ -27,8 +27,10 @@ import numpy as np
 import scipy.sparse as sp
 
 from .native import level_sweep
+from .trace import span
 
 
+@span("sblas.level_schedule", "levels")
 def level_schedule(indptr: np.ndarray, indices: np.ndarray, n: int, *,
                    lower: bool = True) -> tuple[np.ndarray, int]:
     """``(levels[n] int32, nlevels)`` of the ``n x n`` triangular matrix with

@@ -37,6 +37,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ... import trace
 from ._build import entry
 from .spmv_csr import vector_dtype
 
@@ -182,9 +183,10 @@ def prepare(t: dict, unit: int | None = None) -> dict:
         raise ValueError("indptr/indices/data do not match the matrix shape")
     if unit is not None and unit < 1:
         raise ValueError(f"unit must be >= 1, got {unit}")
-    host = indptr.cpu().numpy()
-    parts = {u: _shares(host, u, dev)
-             for u in {unit or UNIT, unit or UNIT_COLS, unit or UNIT_SPMV}}
+    with trace.span("sblas.spmm_csr.partitions", "build"):
+        host = indptr.cpu().numpy()
+        parts = {u: _shares(host, u, dev)
+                 for u in {unit or UNIT, unit or UNIT_COLS, unit or UNIT_SPMV}}
     return {**t, **parts[unit or UNIT], "cols": parts[unit or UNIT_COLS],
             "spmv": parts[unit or UNIT_SPMV]}
 

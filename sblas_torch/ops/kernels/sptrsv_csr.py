@@ -26,7 +26,11 @@ can be captured in a CUDA graph.
 
 ``LAUNCHES`` counts launches of the f32 build, ``LAUNCHES_F64`` those of
 the f64 build, so that a run can show which build its main path went
-through.
+through. While a ``torch.profiler`` records, one launch in
+``trace.COUNT_EVERY`` takes the kernel's counting variant, which adds each
+row's cycles by step into the buffer of
+:func:`sblas_torch.trace.solve_counts_buffer` (same bits; see the note in
+the source); every other launch takes the plain kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ...formats import CSR, check_uploadable, to_device, upload
+from ... import trace
+from ...formats import CSR, cast, check_uploadable, to_device, upload
 from ...levels import level_schedule
 from ...sptrsv_schedule import diagonal
 from ._build import entry
@@ -48,7 +53,8 @@ LAUNCHES_F64 = 0
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n k lower
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # indptr..values
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # inv_diag perm b
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # x flags stream
+             ctypes.c_void_p, ctypes.c_void_p,                   # x flags
+             ctypes.c_void_p, ctypes.c_void_p]                   # counts stream
 # value dtype -> (C symbol, its argument types: pointers and ints only, the
 # same for both builds)
 _SYMBOLS = {torch.float32: ("sblas_sptrsv_csr_f32", _ARGTYPES),
@@ -61,6 +67,7 @@ WARP = 32       # lanes a row takes (csrc/sptrsv_csr.cu)
 GROUP_ROWS = 2048
 
 
+@trace.span("sblas.ticket_order", "levels")
 def ticket_order(levels: np.ndarray, lower: bool,
                  group_rows: int = GROUP_ROWS) -> np.ndarray:
     """The kernel's ticket order (int32 rows): the levels in turn, with
@@ -112,7 +119,7 @@ def prepare(l: CSR, device, *, lower: bool = True,
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"sptrsv_csr runs on cuda or cpu, not {device}")
-    inv_diag = (1.0 / diagonal(l, unit_diagonal)).astype(l.dtype)
+    inv_diag = cast(1.0 / diagonal(l, unit_diagonal), l.dtype)
     levels, nlevels = level_schedule(l.indptr, l.indices, n, lower=lower)
     perm = ticket_order(levels, lower)
     return {**to_device(l, device), "inv_diag": upload(inv_diag, device),
@@ -167,11 +174,13 @@ def sptrsv_csr(op: dict, b: torch.Tensor) -> torch.Tensor:
     if n == 0 or k == 0:
         return out.view(b.shape)
     flags = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    counts = trace.solve_counts_buffer(dev, n)
     fn, err = entry(*_SYMBOLS[b2.dtype])
     rc = fn(n, k, int(op["lower"]), op["indptr"].data_ptr(),
             op["indices"].data_ptr(), op["data"].data_ptr(),
             op["inv_diag"].data_ptr(), op["perm"].data_ptr(), b2.data_ptr(),
             out.data_ptr(), flags.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sptrsv_csr launch failed: CUDA error {rc} "

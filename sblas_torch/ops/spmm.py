@@ -66,6 +66,7 @@ import torch
 from ..formats import CSR, as_torch_dtype, check_uploadable, to_device, upload
 from ..retile import to_bucket_ell, to_ell
 from ..retile_bsr import bsr_stats, pack_bsr
+from ..trace import span
 from ..utils.backend import default_device
 from .kernels import spmm_csr
 from .kernels.spmm_bsr import (BLOCK_COLS, BLOCK_ROWS, bsr_to_device, prepare,
@@ -130,6 +131,7 @@ def xla_heuristic(a: CSR) -> tuple[str, str]:
 class SpmmPlan:
     """Device-resident SpMM executor for one CSR matrix."""
 
+    @span("sblas.SpmmPlan", "build")
     def __init__(self, a, method: str = "auto", *, block_rows: int = 128,
                  k_hint: int | None = None, value_dtype=None,
                  max_width: int = 2048, device=None):

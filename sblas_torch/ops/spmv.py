@@ -59,6 +59,7 @@ import torch
 from ..formats import CSR, as_torch_dtype, to_device, upload
 from ..reorder import rcm
 from ..retile import to_bucket_ell, to_ell
+from ..trace import span
 from ..utils.backend import default_device
 from .kernels import spmm_csr, spmv_csr
 
@@ -145,6 +146,7 @@ def xla_heuristic(a: CSR) -> tuple[str, str]:
 class SpmvPlan:
     """Device-resident SpMV executor for one CSR matrix."""
 
+    @span("sblas.SpmvPlan", "build")
     def __init__(self, a, method: str = "auto", *, max_width: int = 2048,
                  value_dtype=None, device=None):
         from .common import as_csr

@@ -36,6 +36,7 @@ import torch
 
 from ..formats import as_torch_dtype, upload
 from ..sptrsv_schedule import build_level_schedule, validate_schedule
+from ..trace import span
 from ..utils.backend import default_device
 from .kernels import sptrsv_csr
 from .spmv import _PLAN_CACHE
@@ -80,6 +81,7 @@ class SptrsvPlan:
     """Analysis-phase product for one triangular matrix: the route, the
     device-resident operand and the dependency levels."""
 
+    @span("sblas.SptrsvPlan", "build")
     def __init__(self, l, *, lower: bool = True,
                  unit_diagonal: bool = False, tile_rows: int = 0,
                  method: str = "auto", validate: bool = False, device=None):

@@ -40,11 +40,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .formats import CSR, csr_transpose, has_full_diagonal, tril, triu, upload
+from .formats import (CSR, cast, csr_transpose, has_full_diagonal, tril,
+                      triu, upload)
 from .ops.common import as_csr
 from .ops.spmv import SpmvPlan
 from .ops.sptrsv import SptrsvPlan
 from .ops.sptrsv_iter import SptrsvJacobiPlan
+from .trace import span
 from .utils.backend import default_device
 
 __all__ = ["bicgstab", "cg", "gmres", "ichol", "ilu", "jacobi",
@@ -67,15 +69,17 @@ def _device(device) -> torch.device:
     return torch.device(device) if device is not None else default_device()
 
 
+@span("sblas.solvers.jacobi", "build")
 def jacobi(a, *, device=None):
     """Diagonal (Jacobi) preconditioner: ``z = r / diag(A)`` (a missing
     diagonal entry counts as 1)."""
     a = as_csr(a)
     coo = a.tocoo()
-    d = np.ones(a.shape[0], dtype=a.dtype)
-    m = coo.row == coo.col
-    d[coo.row[m]] = coo.data[m]
-    inv = upload((1.0 / d).astype(a.dtype), _device(device))
+    with span("sblas.solvers.jacobi.diagonal", "build"):
+        d = np.ones(a.shape[0], dtype=a.dtype)
+        m = coo.row == coo.col
+        d[coo.row[m]] = coo.data[m]
+    inv = upload(cast(1.0 / d, a.dtype), _device(device))
 
     def apply(r: torch.Tensor) -> torch.Tensor:
         return inv * r
@@ -83,6 +87,7 @@ def jacobi(a, *, device=None):
     return apply
 
 
+@span("sblas.solvers.factor", "factor")
 def _shifted(factor, indptr, indices, base: np.ndarray, diag_mask,
              shift: float, max_shift_tries: int, name: str) -> np.ndarray:
     """The values ``factor`` leaves in place on ``base`` (f64), retried on
@@ -99,6 +104,7 @@ def _shifted(factor, indptr, indices, base: np.ndarray, diag_mask,
     raise ValueError(f"{name} breakdown persists after diagonal shifts")
 
 
+@span("sblas.solvers.ichol", "build")
 def ichol(a, *, shift: float = 0.0, max_shift_tries: int = 6,
           trsv_sweeps: int | None = None, device=None) -> TriangularPair:
     """IC(0) preconditioner: ``M = L L^T`` on the pattern of ``tril(A)``.
@@ -119,9 +125,9 @@ def ichol(a, *, shift: float = 0.0, max_shift_tries: int = 6,
     if not has_diag.all():
         raise ValueError("IC(0) needs a full diagonal")
     vals = _shifted(native.ic0_inplace, lo.indptr, lo.indices,
-                    lo.data.astype(np.float64), lo.indices == lo.row_ids(),
+                    cast(lo.data, np.float64), lo.indices == lo.row_ids(),
                     shift, max_shift_tries, "IC(0)")
-    l = CSR(lo.shape, lo.indptr, lo.indices, vals.astype(lo.dtype))
+    l = CSR(lo.shape, lo.indptr, lo.indices, cast(vals, lo.dtype))
     lt = csr_transpose(l)
     dev = _device(device)
     if trsv_sweeps is not None:
@@ -133,6 +139,7 @@ def ichol(a, *, shift: float = 0.0, max_shift_tries: int = 6,
                           SptrsvPlan(lt, lower=False, device=dev))
 
 
+@span("sblas.solvers.ilu", "build")
 def ilu(a, *, shift: float = 0.0, max_shift_tries: int = 6,
         trsv_sweeps: int | None = None, device=None) -> TriangularPair:
     """ILU(0) preconditioner: ``M = L U`` on the pattern of ``A``
@@ -153,9 +160,9 @@ def ilu(a, *, shift: float = 0.0, max_shift_tries: int = 6,
         raise ValueError("ILU(0) needs a full diagonal")
     coo = a.tocoo()
     vals = _shifted(native.ilu0_inplace, a.indptr, a.indices,
-                    coo.data.astype(np.float64), coo.row == coo.col,
+                    cast(coo.data, np.float64), coo.row == coo.col,
                     shift, max_shift_tries, "ILU(0)")
-    fac = CSR(a.shape, a.indptr, a.indices, vals.astype(a.dtype))
+    fac = CSR(a.shape, a.indptr, a.indices, cast(vals, a.dtype))
     l = tril(fac, unit_diagonal=True)
     u = triu(fac)
     dev = _device(device)

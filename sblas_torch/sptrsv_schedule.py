@@ -16,6 +16,7 @@ import numpy as np
 
 from .formats import CSR, INDEX_DTYPE
 from .levels import level_schedule
+from .trace import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,6 +65,7 @@ class LevelSchedule:
         return len(self.slot_row)
 
 
+@span("sblas.diagonal", "build")
 def diagonal(l: CSR, unit_diagonal: bool = False) -> np.ndarray:
     """The diagonal of a square ``l`` in float64 (ones for
     ``unit_diagonal``). Raises ``ValueError`` for a missing or zero
