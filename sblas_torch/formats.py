@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import native
 from .trace import span
 
 INDEX_DTYPE = np.int32
@@ -231,8 +232,20 @@ def coo_to_csc(a: COO) -> CSC:
 
 @span("sblas.csr_transpose", "convert")
 def csr_transpose(a: CSR) -> CSR:
-    """CSR of A^T. A stable sort of the nonzeros by column is exactly the
-    transpose's CSR order: grouped by column, each column in row order."""
+    """CSR of A^T, by a counting sort on the columns in the host library
+    (:func:`sblas_torch.native.csr_transpose`): each column's entries in
+    row order, the stable sort's order, for any input. Raises
+    ``RuntimeError`` without ``g++``, as the level sweep does."""
+    m, n = a.shape
+    indptr, indices, data = native.csr_transpose(a.indptr, a.indices, a.data,
+                                                 (m, n))
+    return CSR((n, m), indptr, indices, data)
+
+
+def csr_transpose_plain(a: CSR) -> CSR:
+    """:func:`csr_transpose` in numpy, the version the tests hold it to. A
+    stable sort of the nonzeros by column is exactly the transpose's CSR
+    order: grouped by column, each column in row order."""
     m, n = a.shape
     counts = np.bincount(a.indices, minlength=n).astype(INDEX_DTYPE)
     indptr = np.zeros(n + 1, dtype=INDEX_DTYPE)
@@ -241,10 +254,67 @@ def csr_transpose(a: CSR) -> CSR:
     return CSR((n, m), indptr, a.row_ids()[order], a.data[order])
 
 
+def _canonical(a: CSR) -> bool:
+    """True where ``indptr`` rises from 0 to nnz and every row's columns
+    strictly increase: the CSR that a per-row mask keeps canonical. One
+    vectorised pass over the columns."""
+    indptr, indices = a.indptr, a.indices
+    if indptr[0] != 0 or indptr[-1] != len(indices) or \
+            (indptr[1:] < indptr[:-1]).any():
+        return False
+    rises = indices[1:] > indices[:-1]
+    # the comparisons across a row boundary do not count
+    starts = indptr[1:-1]
+    rises[starts[(starts > 0) & (starts < len(indices))] - 1] = True
+    return bool(rises.all())
+
+
+def _masked(a: CSR, mask: np.ndarray, diag: np.ndarray | None = None) -> CSR:
+    """The entries of the canonical ``a`` that ``mask`` keeps, in their
+    order, with the values the COO round trip (:func:`tril_plain`) gives:
+    summed onto zeros, so a stored ``-0.0`` comes out ``+0.0``. The entries
+    under ``diag`` are set to 1."""
+    m = a.shape[0]
+    indices = a.indices[mask]
+    data = a.data[mask]
+    np.add(data, 0.0, out=data)
+    if diag is not None:
+        data[diag[mask]] = 1.0
+    # each row's kept count; reduceat over the rows that hold entries,
+    # since it reads one entry for an empty segment
+    starts = a.indptr[:-1]
+    full = a.indptr[1:] > starts
+    counts = np.zeros(m, dtype=INDEX_DTYPE)
+    counts[full] = np.add.reduceat(mask, starts[full], dtype=INDEX_DTYPE)
+    indptr = np.zeros(m + 1, dtype=INDEX_DTYPE)
+    np.cumsum(counts, out=indptr[1:])
+    return CSR(a.shape, indptr, indices, data)
+
+
 @span("sblas.tril", "convert")
 def tril(a: CSR, k: int = 0, *, unit_diagonal: bool = False) -> CSR:
     """The lower-triangular part (col <= row + k). ``unit_diagonal`` sets
-    the stored diagonal entries to exactly 1."""
+    the stored diagonal entries to exactly 1. A canonical ``a`` is masked
+    row by row; any other goes the COO round trip of :func:`tril_plain`,
+    which sorts and sums duplicates. Both give the same arrays."""
+    if not _canonical(a):
+        return tril_plain(a, k, unit_diagonal=unit_diagonal)
+    rows = a.row_ids()
+    return _masked(a, a.indices <= rows + k,
+                   a.indices == rows if unit_diagonal else None)
+
+
+@span("sblas.triu", "convert")
+def triu(a: CSR, k: int = 0) -> CSR:
+    """The upper-triangular part (col >= row + k), as :func:`tril`."""
+    if not _canonical(a):
+        return triu_plain(a, k)
+    return _masked(a, a.indices >= a.row_ids() + k)
+
+
+def tril_plain(a: CSR, k: int = 0, *, unit_diagonal: bool = False) -> CSR:
+    """:func:`tril` through COO: the triplets masked, sorted by (row, col)
+    and their duplicates summed (:func:`coo_to_csr`)."""
     coo = a.tocoo()
     mask = coo.col <= coo.row + k
     out = COO(a.shape, coo.row[mask], coo.col[mask], coo.data[mask]).tocsr()
@@ -256,9 +326,8 @@ def tril(a: CSR, k: int = 0, *, unit_diagonal: bool = False) -> CSR:
     return out
 
 
-@span("sblas.triu", "convert")
-def triu(a: CSR, k: int = 0) -> CSR:
-    """The upper-triangular part (col >= row + k)."""
+def triu_plain(a: CSR, k: int = 0) -> CSR:
+    """:func:`triu` through COO, as :func:`tril_plain`."""
     coo = a.tocoo()
     mask = coo.col >= coo.row + k
     return COO(a.shape, coo.row[mask], coo.col[mask], coo.data[mask]).tocsr()

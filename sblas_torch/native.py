@@ -4,8 +4,9 @@ The port's own copies of the JAX package's native helpers, one file a
 pass under ``sblas_torch/hostsrc/``: the incomplete factorizations
 (``factor.cpp``: IC(0), ILU(0) in f64), the solves' dependency levels
 (``levels.cpp``: one O(nnz) sweep) and the MatrixMarket coordinate parse
-(``mtx.cpp``). Every ``hostsrc/*.cpp`` compiles at first use into one
-library,
+(``mtx.cpp``), and, of the port's own, the CSR transpose
+(``transpose.cpp``: a counting sort by column). Every ``hostsrc/*.cpp``
+compiles at first use into one library,
 
     g++ -O3 -march=native -shared -fPIC
         -o build/sblas_torch/libsblas_torch_host_<h>.so hostsrc/*.cpp
@@ -18,8 +19,9 @@ or for another CPU or compiler, is never loaded, so a ``build/`` copied
 from one machine to another rebuilds. A missing ``g++`` or a failed
 build raises ``RuntimeError`` with the compiler's output; there is no numpy
 fallback on this path (the numpy versions in :mod:`sblas_torch.solvers`,
-:func:`sblas_torch.levels.level_schedule_plain` and
-:func:`sblas_torch.io.parse_coordinate_plain` are the plain versions the
+:func:`sblas_torch.levels.level_schedule_plain`,
+:func:`sblas_torch.io.parse_coordinate_plain` and
+:func:`sblas_torch.formats.csr_transpose_plain` are the plain versions the
 tests hold the library to).
 """
 
@@ -48,7 +50,7 @@ def _cxx() -> str:
     if cxx is None:
         raise RuntimeError("g++ not found on PATH: the host library of "
                            "sblas_torch (factorizations, levels, .mtx "
-                           "parse) cannot be built")
+                           "parse, transpose) cannot be built")
     return cxx
 
 
@@ -126,6 +128,11 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int64
         fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int32, i64p, i64p, f64p]
+        fn = lib.sblas_torch_csr_transpose
+        fn.restype = ctypes.c_int32
+        fn.argtypes = [i32p, i32p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, i32p, i32p,
+                       ctypes.c_void_p]
         _LIB = lib
     return _LIB
 
@@ -182,6 +189,40 @@ def level_sweep(indptr, indices, n: int, *,
         raise ValueError(f"a column index outside [0, {n}) on the strict "
                          "side of the diagonal")
     return levels, int(nlevels)
+
+
+def csr_transpose(indptr, indices, data: np.ndarray, shape):
+    """``(indptr, indices, data)`` of the CSR of the transpose of the
+    ``shape = (m, n)`` CSR given, by a counting sort on the columns: each
+    column's entries in row order, values copied bit for bit. ``indptr``
+    must run from 0 to ``len(indices)``; a column outside ``[0, n)``
+    raises ``ValueError``."""
+    m, n = (int(s) for s in shape)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    data = np.ascontiguousarray(data)
+    if len(indptr) != m + 1:
+        raise ValueError(f"indptr has {len(indptr)} entries for m = {m}")
+    if len(indices) != len(data):
+        raise ValueError("indices and values differ in length")
+    # the passes read indices[indptr[i]:indptr[i + 1]] unchecked
+    if indptr[0] != 0 or indptr[-1] != len(indices) or \
+            (np.diff(indptr) < 0).any():
+        raise ValueError("indptr must rise from 0 to len(indices) = "
+                         f"{len(indices)}")
+    t_indptr = np.empty(n + 1, dtype=np.int32)
+    t_indices = np.empty(len(indices), dtype=np.int32)
+    t_data = np.empty_like(data)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    got = load().sblas_torch_csr_transpose(
+        indptr.ctypes.data_as(i32p), indices.ctypes.data_as(i32p),
+        data.ctypes.data, m, n, data.itemsize, t_indptr.ctypes.data_as(i32p),
+        t_indices.ctypes.data_as(i32p), t_data.ctypes.data)
+    if got == -2:
+        raise ValueError(f"no transpose for {data.itemsize}-byte values")
+    if got != 0:
+        raise ValueError(f"a column index outside [0, {n})")
+    return t_indptr, t_indices, t_data
 
 
 def parse_mtx_body(body: bytes, nnz: int, has_value: bool):

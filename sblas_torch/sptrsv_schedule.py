@@ -78,7 +78,9 @@ def diagonal(l: CSR, unit_diagonal: bool = False) -> np.ndarray:
     dmask = rows == l.indices
     diag_rows = rows[dmask]
     diag[diag_rows] = l.data[dmask]
-    missing = np.setdiff1d(np.arange(n), diag_rows, assume_unique=False)
+    found = np.zeros(n, dtype=bool)
+    found[diag_rows] = True
+    missing = np.flatnonzero(~found)
     if len(missing):
         raise ValueError(
             f"{len(missing)} rows have no diagonal entry "

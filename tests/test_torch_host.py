@@ -277,6 +277,177 @@ def test_has_full_diagonal_matches(name):
     assert not ref_has_full_diagonal(dropped)
 
 
+def _same_bits(p, r):
+    """``_same_csr``, the values compared bit for bit (``-0.0`` is not
+    ``+0.0``)."""
+    _same_csr(p, r)
+    assert p.data.view(np.uint8).tobytes() == r.data.view(np.uint8).tobytes()
+
+
+def _from_rows(shape, rows, cols, vals):
+    """A CSR of the entries in the order given within each row (unsorted
+    and duplicated columns kept)."""
+    rows = np.asarray(rows, np.int64)
+    order = np.argsort(rows, kind="stable")
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=shape[0]))])
+    return CSR(shape, indptr, np.asarray(cols)[order],
+               np.asarray(vals)[order])
+
+
+def _empty_rows(dtype):
+    # the first, the last and every fourth row hold nothing
+    a = datasets.random_csr(60, 60, 7, seed=6, dtype=dtype).tocoo()
+    keep = (a.row % 4 != 1) & (a.row > 0) & (a.row < 59)
+    return _from_rows(a.shape, a.row[keep], a.col[keep], a.data[keep])
+
+
+def _negative_zero(dtype):
+    # a stored -0.0 below, on and above the diagonal
+    a = datasets.poisson2d(9, dtype=dtype)
+    data = a.data.copy()
+    data[::3] = -0.0
+    return CSR(a.shape, a.indptr, a.indices, data)
+
+
+CANONICAL = {
+    "poisson2d": lambda dt: datasets.poisson2d(12, dtype=dt),
+    "random_csr(60x90)": lambda dt: datasets.random_csr(60, 90, 9, seed=2,
+                                                        dtype=dt),
+    "empty_rows": _empty_rows,
+    "negative_zero": _negative_zero,
+    "nnz=0": lambda dt: CSR((7, 5), np.zeros(8, np.int32),
+                            np.zeros(0, np.int32), np.zeros(0, dt)),
+}
+
+
+def _unsorted(dtype):
+    a = datasets.random_csr(50, 50, 6, seed=3, dtype=dtype)
+    return _from_rows(a.shape, a.row_ids()[::-1], a.indices[::-1],
+                      a.data[::-1])
+
+
+def _duplicated(dtype):
+    # entries stored twice, with -0.0 among them, in row order
+    a = _negative_zero(dtype).tocoo()
+    return _from_rows(a.shape, np.concatenate([a.row, a.row[::5]]),
+                      np.concatenate([a.col, a.col[::5]]),
+                      np.concatenate([a.data, a.data[::5]]))
+
+
+NOT_CANONICAL = {"unsorted": _unsorted, "duplicated": _duplicated}
+
+
+def _negative_zeros(data) -> int:
+    return int((np.signbit(data) & (data == 0)).sum())
+
+
+def _coo_to_csr_under_triangles() -> int:
+    from sblas_torch import trace
+
+    return sum(1 for name, _, parent, _, _ in trace.totals()["spans"]
+               if name == "sblas.coo_to_csr"
+               and parent in ("sblas.tril", "sblas.triu"))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [-1, 0, 1])
+@pytest.mark.parametrize("name", [*CANONICAL, *NOT_CANONICAL])
+def test_tril_triu_equal_the_sort_path_and_the_reference(name, k, dtype):
+    # a canonical CSR is masked row by row, any other goes the COO round
+    # trip; both give the sort path's bits and the JAX package's
+    from sblas import formats as ref_formats
+    from sblas_torch import formats, trace
+
+    a = {**CANONICAL, **NOT_CANONICAL}[name](dtype)
+    assert formats._canonical(a) == (name in CANONICAL)
+    r = ref_formats.CSR(a.shape, a.indptr, a.indices, a.data)
+    trace.reset()
+    for unit in (False, True):
+        got = formats.tril(a, k, unit_diagonal=unit)
+        _same_bits(got, formats.tril_plain(a, k, unit_diagonal=unit))
+        _same_bits(got, ref_formats.tril(r, k, unit_diagonal=unit))
+        assert _negative_zeros(got.data) == 0
+    got = formats.triu(a, k)
+    _same_bits(got, formats.triu_plain(a, k))
+    _same_bits(got, ref_formats.triu(r, k))
+    # tril twice through coo_to_csr with unit_diagonal, once without; triu
+    # once
+    assert _coo_to_csr_under_triangles() == \
+        (0 if name in CANONICAL else 4)
+    assert (_negative_zeros(a.data) > 0) == ("zero" in name or
+                                             name == "duplicated")
+
+
+def _transposed(name, dtype):
+    if name in CANONICAL:
+        return CANONICAL[name](dtype)
+    if name in NOT_CANONICAL:
+        return NOT_CANONICAL[name](dtype)
+    if name == "empty_columns":
+        a = datasets.random_csr(40, 70, 5, seed=8, dtype=dtype).tocoo()
+        keep = (a.col % 3 != 0) & (a.col < 60)
+        return _from_rows(a.shape, a.row[keep], a.col[keep], a.data[keep])
+    return CSR((0, 0), np.zeros(1, np.int32), np.zeros(0, np.int32),
+               np.zeros(0, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex128])
+@pytest.mark.parametrize("name", [*CANONICAL, *NOT_CANONICAL,
+                                  "empty_columns", "0x0"])
+def test_native_transpose_equals_the_stable_sort(name, dtype):
+    from sblas import formats as ref_formats
+    from sblas_torch import formats
+
+    a = _transposed(name, dtype)
+    got = formats.csr_transpose(a)
+    assert got.shape == a.shape[::-1]
+    _same_bits(got, formats.csr_transpose_plain(a))
+    r = ref_formats.CSR(a.shape, a.indptr, a.indices, a.data)
+    _same_bits(got, ref_formats.csr_transpose(r))
+    # and back
+    _same_bits(formats.csr_transpose(got), formats.csr_transpose_plain(got))
+
+
+def test_native_transpose_refuses_what_it_cannot_read():
+    from sblas_torch import formats
+
+    with pytest.raises(ValueError, match="outside"):
+        formats.csr_transpose(CSR((2, 3), [0, 1, 2], [0, 3], [1.0, 2.0]))
+    with pytest.raises(ValueError, match="indptr"):
+        formats.csr_transpose(CSR((2, 3), [0, 2, 1], [0, 1], [1.0, 2.0]))
+    with pytest.raises(ValueError, match="indptr"):
+        formats.csr_transpose(CSR((2, 3), [0, 1, 1], [0, 1], [1.0, 2.0]))
+
+
+@pytest.mark.parametrize("fault", ["missing", "missing(7 rows)", "zero"])
+def test_diagonal_raises_as_before(fault):
+    # the message names the missing rows, the first five in order, as the
+    # JAX package's schedule does
+    l = datasets.lower_triangular(40, 4, seed=2, dtype=np.float64).tocoo()
+    drop = {"missing": [17, 3], "missing(7 rows)": [30, 2, 9, 4, 21, 5, 11],
+            "zero": []}[fault]
+    keep = ~((l.row == l.col) & np.isin(l.row, drop))
+    data = l.data.copy()
+    if fault == "zero":
+        data[(l.row == l.col) & (l.row == 12)] = 0.0
+    p = _from_rows(l.shape, l.row[keep], l.col[keep], data[keep])
+    want = ("zero diagonal entry; matrix is singular" if not drop else
+            f"{len(drop)} rows have no diagonal entry (first: "
+            f"{np.sort(drop)[:5]}); pass unit_diagonal=True or fix L")
+    with pytest.raises(ValueError) as err:
+        sptrsv_schedule.diagonal(p)
+    assert str(err.value) == want
+    from sblas.formats import CSR as RefCSR
+
+    r = RefCSR(p.shape, p.indptr, p.indices, p.data)
+    with pytest.raises(ValueError) as ref_err:
+        ref_sched.build_level_schedule(r)
+    assert str(ref_err.value) == want
+    np.testing.assert_array_equal(
+        sptrsv_schedule.diagonal(p, unit_diagonal=True), np.ones(40))
+
+
 @pytest.mark.parametrize("eps", [0.01, 0.05])
 @pytest.mark.parametrize("nx", [12, 32])
 def test_convection_diffusion_matches_the_example(nx, eps):

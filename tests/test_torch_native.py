@@ -161,6 +161,23 @@ def test_levels_without_gxx_raise(monkeypatch, tmp_path):
         native.host_tag.cache_clear()
 
 
+def test_the_transpose_is_built_with_the_host_library():
+    assert "transpose.cpp" in {s.name for s in native.sources()}
+    assert hasattr(native.load(), "sblas_torch_csr_transpose")
+
+
+def test_transpose_without_gxx_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    native.host_tag.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            _chain(5).tocsc()
+    finally:
+        native.host_tag.cache_clear()
+
+
 # (b) the MatrixMarket parse ---------------------------------------------
 
 BODIES = {

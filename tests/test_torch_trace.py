@@ -208,6 +208,40 @@ def test_ichol_records_all_five_phases(fresh):
     assert trace.totals()["names"] == names
 
 
+def _shuffled_row(a, row):
+    """``a`` with ``row``'s columns (and values) in reverse order."""
+    indices, data = a.indices.copy(), a.data.copy()
+    lo, hi = a.indptr[row], a.indptr[row + 1]
+    indices[lo:hi], data[lo:hi] = indices[lo:hi][::-1], data[lo:hi][::-1]
+    return type(a)(a.shape, a.indptr, indices, data)
+
+
+def _operands(pre):
+    return {f"{side}.{k}": v.numpy().tobytes()
+            for side, plan in (("fwd", pre.fwd), ("bwd", pre.bwd))
+            for k, v in plan._op.items() if isinstance(v, torch.Tensor)}
+
+
+def test_ichol_of_a_canonical_matrix_sorts_nothing(fresh):
+    # tril masks a canonical CSR row by row; only a matrix with a row out
+    # of order goes through coo_to_csr, and gives the same factors
+    a = datasets.poisson2d(24, dtype=np.float64)
+    trace.reset()
+    pre = solvers.ichol(a, device="cpu")
+    names = trace.totals()["names"]
+    assert "sblas.coo_to_csr" not in names
+    assert names["sblas.tril"]["calls"] == 1
+    trace.reset()
+    shuffled = solvers.ichol(_shuffled_row(a, 100), device="cpu")
+    names = trace.totals()["names"]
+    assert names["sblas.coo_to_csr"]["calls"] == 1
+    assert {p for n, _, p, _, _ in trace.totals()["spans"]
+            if n == "sblas.coo_to_csr"} == {"sblas.tril"}
+    got, want = _operands(shuffled), _operands(pre)
+    assert set(got) >= {"fwd.data", "bwd.data", "fwd.inv_diag", "bwd.perm"}
+    assert got == want
+
+
 @pytest.mark.parametrize("build", ["jacobi", "spmv_plan"])
 def test_jacobi_and_the_spmv_plan_record_build_convert_upload(fresh, build):
     a = datasets.poisson2d(16, dtype=np.float64)
