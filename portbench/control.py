@@ -10,6 +10,7 @@ seeds run the program as the cell states, for the lower reading.
         [--seconds 3] [--sound]
 
 One line of JSON a seed: ``{"seed", "control", "correct", "compared"}``.
+A cell of several chips runs as its ranks (:mod:`portbench.launch`).
 The benchmark's own runs never run it.
 """
 
@@ -32,13 +33,15 @@ def main(argv=None) -> int:
 
     from . import harness
 
-    if not torch.cuda.is_available():
-        print("the control runs on a CUDA device", file=sys.stderr)
+    chips = int(harness.cell_of(harness.load_benchmark(),
+                                args.workload)["chips"])
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"the control runs on {chips} CUDA device(s)", file=sys.stderr)
         return 2
     for seed in (int(s) for s in args.seeds.split(",")):
         for control in ([False, True] if args.sound else [True]):
-            res, _ = harness.run(args.workload, seed, args.seconds, False,
-                                 control=control)
+            res, _, _ = harness.run_cell(args.workload, seed, args.seconds,
+                                         False, control=control)
             print(json.dumps({"seed": seed, "control": control,
                               "correct": res["correct"],
                               "attempted": res["attempted"],

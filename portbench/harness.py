@@ -5,7 +5,9 @@ configuration's file (its ``"kind"`` names ``portbench/generators/<kind>.py``),
 the traffic mix's data file ``portbench/traffic/<traffic>.json`` (its
 ``"solver"`` names ``portbench/solves/<solver>.py``) and each metric's
 reader ``portbench/metrics/<metric>.py``. A new cell, mix or metric is new
-files and entries; no file here changes for it.
+files and entries; no file here changes for it. A cell on N > 1 cards runs
+as N ranks, each through :func:`run` with its ``rank`` and ``world``
+(:mod:`portbench.launch`).
 """
 
 from __future__ import annotations
@@ -55,8 +57,11 @@ def traffic_of(name: str) -> dict:
 
 
 def module(kind: str, name: str):
-    """``portbench.<kind>.<name>`` (``generators``, ``solves``)."""
-    return importlib.import_module(f"portbench.{kind}.{name}")
+    """``portbench.<kind>.<name>`` (``generators``, ``solves``), or the
+    module ``name`` where it is a path under the package
+    (``portbench.tests.…``: the tests' own generators and loops)."""
+    return importlib.import_module(
+        name if name.startswith("portbench.") else f"portbench.{kind}.{name}")
 
 
 def metric_reader(name: str):
@@ -75,12 +80,37 @@ def metrics_for(bench: dict, cell: str, trace: bool) -> list:
     return [m for m in group if cell in m.get("workloads", [cell])]
 
 
+class RankFailure(RuntimeError):
+    """A rank of a cell on several cards raised, ended without its result,
+    or gave none by the deadline (:mod:`portbench.launch`)."""
+
+
 def forbidden_modules(names=None) -> list:
     """The top-level names in ``names`` (default: ``sys.modules``) that
     are in ``FORBIDDEN``, compared whole: ``sblas_torch`` is not
     ``sblas``."""
     names = sys.modules if names is None else names
     return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
+
+
+def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
+             bench=None, **kw) -> tuple[dict, list, list]:
+    """``(result, lines, forbidden)`` of one run of the cell as the command
+    makes it: one chip in this process (:func:`run`), several chips as
+    their ranks (:func:`portbench.launch.run_ranks`: raises
+    :class:`RankFailure`); ``forbidden``, the forbidden modules loaded by
+    every process of the run. ``kw`` as :func:`run` and ``run_ranks`` take
+    it."""
+    bench = bench or load_benchmark()
+    chips = int(cell_of(bench, cell_name)["chips"])
+    if chips == 1:
+        result, lines = run(cell_name, seed, seconds, trace, bench=bench,
+                            **kw)
+        return result, lines, forbidden_modules()
+    from .launch import run_ranks
+
+    return run_ranks(cell_name, seed, seconds, trace, world=chips,
+                     bench=bench, **kw)
 
 
 def _sync(device: torch.device) -> None:
@@ -90,31 +120,42 @@ def _sync(device: torch.device) -> None:
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         device="cuda", started: float | None = None, bench=None,
-        config=None, traffic=None, control: bool = False
-        ) -> tuple[dict, list]:
+        config=None, traffic=None, control: bool = False,
+        rank: int = 0, world: int = 1) -> tuple[dict | None, list]:
     """``(result, lines)``: the result line's object and the lines for
     standard error, the numbers compared (``compared <name> <value> limit
     <limit>``) last. ``started``: the ``time.perf_counter()`` reading the
     set-up counts from (default: now);
     ``config``/``traffic`` replace the named files (the tests' small
     sizes); ``control`` runs the port's lower-precision path of the mix's
-    ``"control"`` instead (:mod:`portbench.control`)."""
+    ``"control"`` instead (:mod:`portbench.control`). With ``world`` > 1
+    this is rank ``rank`` of a running process group: the generator and
+    the loop get ``rank`` and ``world``, the ranks keep in step
+    (:class:`portbench.launch.Lockstep`), and rank 0 returns the line
+    merged from every rank's (:func:`portbench.launch.merge`); the other
+    ranks return None for it."""
     t_begin = time.perf_counter() if started is None else started
     bench = bench or load_benchmark()
     cell = cell_of(bench, cell_name)
     cfg = config or config_of(bench, cell["config"])
     params = traffic or traffic_of(cell["traffic"])
     device = torch.device(device)
+    ranked, steps = {}, None
+    if world > 1:
+        from .launch import Lockstep
+
+        ranked, steps = {"rank": rank, "world": world}, Lockstep(rank, world)
 
     t = time.perf_counter()
     before_s = t - t_begin
-    inputs = module("generators", cfg["kind"]).generate(cfg, seed, device)
+    inputs = module("generators", cfg["kind"]).generate(cfg, seed, device,
+                                                        **ranked)
     _sync(device)
     gen_s = time.perf_counter() - t
     spans = Spans(bool(trace))
     t = time.perf_counter()
     solves = module("solves", params["solver"]).Solves(
-        inputs, params, seed, device, spans, control=control)
+        inputs, params, seed, device, spans, control=control, **ranked)
     _sync(device)
     work_s = time.perf_counter() - t
     if device.type == "cuda":
@@ -131,6 +172,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         solves.solve(-1 - w)
     per_solve = (time.perf_counter() - t) / warm
     solves.window(max(1, int(seconds / max(per_solve, 1e-9))))
+    if steps is not None:
+        steps.barrier()
     setup_s = time.perf_counter() - t_begin
 
     prof, summary = None, None
@@ -155,10 +198,14 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         t1 = time.perf_counter()
         times.append(t1 - t0)
         i += 1
-        if spans.active and t1 - t_start >= trace_s:
+        stop_trace = spans.active and t1 - t_start >= trace_s
+        done = t1 - t_start >= seconds
+        if steps is not None:       # rank 0 decides for every rank
+            stop_trace, done = steps.decide(stop_trace, done)
+        if stop_trace:
             prof.stop()
             spans.active = False
-        if t1 - t_start >= seconds:
+        if done:
             break
     window_s = t1 - t_start
     if spans.active:
@@ -183,6 +230,22 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
            "plan_s": plan_s, "info": info, "trace": summary,
            "spans": {"calls": dict(spans.calls),
                      "least_s": dict(spans.least_s)}}
+    ranks_line = []
+    if steps is not None:
+        from .launch import merge
+
+        parts = steps.gather({"rec": rec, "correct": correct, "over": over,
+                              "compared": compared, "peak": int(peak)})
+        if rank != 0:
+            return None, []
+        merged = merge(parts)
+        rec, correct, over, compared, peak = (
+            merged[k] for k in ("rec", "correct", "over", "compared", "peak"))
+        ranks_line = [
+            f"ranks: {world}; solves {[len(p['rec']['times']) for p in parts]}"
+            f", plan_s {[p['rec']['plan_s'] for p in parts]}, peak bytes "
+            f"{[p['peak'] for p in parts]}, correct "
+            f"{[p['correct'] for p in parts]}"]
     metrics = {}
     for m in metrics_for(bench, cell_name, bool(trace)):
         v = metric_reader(m["name"]).read(rec)
@@ -213,6 +276,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
             f"trace: {summary['solves']} solves, {summary['device_events']} "
             f"device operations, {summary['launch_links']} linked to their "
             f"launch; device seconds by range {summary['device_s']}")
+    lines += ranks_line
     lines += [f"compared {k} {v!r} limit {lim!r}"
              for k, (v, lim) in compared.items()]
     return result, lines

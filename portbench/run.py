@@ -6,7 +6,10 @@
 It exits 2, printing no result, where the cell's chips are not there, and
 3 where a forbidden module (``harness.FORBIDDEN``) was loaded. The last
 lines on standard error are the numbers compared, each beside its limit;
-the last line on standard output is the result.
+the last line on standard output is the result. A cell of one chip runs in
+this process; a cell of N > 1 chips as N rank processes, one a card
+(:mod:`portbench.launch`), and it exits 1, printing no result, where a
+rank fails.
 """
 
 from __future__ import annotations
@@ -53,10 +56,25 @@ def main(argv=None) -> int:
               f"sees {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    result, lines = harness.run(args.workload, args.seed, args.seconds,
-                                bool(args.trace), started=started,
-                                bench=bench)
-    bad = harness.forbidden_modules()
+    return run_and_print(args.workload, args.seed, args.seconds,
+                         bool(args.trace), started=started, bench=bench)
+
+
+def run_and_print(workload: str, seed: int, seconds: float, trace: bool,
+                  *, started: float | None, bench: dict,
+                  device: str = "cuda", **overrides) -> int:
+    """Run the cell, print its lines and its result; the exit code.
+    ``overrides`` (``config``, ``traffic``; ``deadline_s`` for several
+    chips) are the tests' small sizes and short limits."""
+    from . import harness
+
+    try:
+        result, lines, bad = harness.run_cell(
+            workload, seed, seconds, trace, device=device, started=started,
+            bench=bench, **overrides)
+    except harness.RankFailure as e:
+        print(f"{workload}: {e}", file=sys.stderr, flush=True)
+        return 1
     if bad:
         print(f"forbidden modules loaded: {bad}", file=sys.stderr)
         return 3

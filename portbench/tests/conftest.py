@@ -1,5 +1,7 @@
 """Small sizes of the benchmark's configurations, for the CPU tests: the
-port's plain versions run there (``device="cpu"``)."""
+port's plain versions run there (``device="cpu"``). A configuration of a
+kind not in ``SMALL`` gives its own, under ``"small"`` in its file; a cell
+of several chips runs as its ranks, on gloo (:mod:`portbench.launch`)."""
 
 from __future__ import annotations
 
@@ -19,15 +21,18 @@ def bench():
 
 def small_config(bench: dict, cell: str) -> dict:
     cfg = harness.config_of(bench, harness.cell_of(bench, cell)["config"])
-    return {**cfg, **SMALL[cfg["kind"]]}
+    return {**cfg, **(SMALL[cfg["kind"]] if cfg["kind"] in SMALL
+                      else cfg["small"])}
 
 
 def run_small(bench: dict, cell: str, *, trace: bool = False,
               control: bool = False, seconds: float = 0.3,
-              seed: int = SEED):
-    return harness.run(cell, seed, seconds, trace, device="cpu",
-                       bench=bench, config=small_config(bench, cell),
-                       control=control)
+              seed: int = SEED, traffic: dict | None = None):
+    """``(result, lines)`` of the cell at its small size on the CPU."""
+    result, lines, _ = harness.run_cell(
+        cell, seed, seconds, trace, device="cpu", bench=bench,
+        config=small_config(bench, cell), traffic=traffic, control=control)
+    return result, lines
 
 
 @pytest.fixture

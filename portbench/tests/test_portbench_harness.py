@@ -24,6 +24,11 @@ from .conftest import SEED, run_small, small_config
 ROOT = harness.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 CELLS = [w["name"] for w in harness.load_benchmark()["workloads"]]
+# the cells of the first benchmark, each on one chip
+ONE_CHIP = {"hpcg-256.ic0-cg", "gap-kron25.pagerank", "gap-kron25.ppr-k32",
+            "hpcg-256.jacobi-cg"}
+# counters that only a kernel's CUDA build fills (the solve's cycle sums)
+CARD_COUNTERS = {"sptrsv.wait_pct"}
 
 
 def test_everything_found_by_name(bench):
@@ -61,9 +66,13 @@ def test_contract_shape(bench):
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
     for w in bench["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert harness.metrics_for(bench, w["name"], True)
         assert len(harness.metrics_for(bench, w["name"], False)) >= 2
+        assert w["chips"] == 1 or w["name"] not in ONE_CHIP
+    fours = [w for w in bench["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(bench["workloads"]) // 4)
+    assert ONE_CHIP <= set(CELLS)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -78,10 +87,11 @@ def test_result_line(bench, cell, trace):
     assert res["attempted"] >= 1
     want = {m["name"] for m in harness.metrics_for(bench, cell, trace)}
     got = set(res["metrics"])
-    # on the CPU nothing runs on a device: the device-trace metrics are
-    # left out, every other one is there
+    # on the CPU nothing runs on a device: the device-trace metrics and
+    # the counters that only a card fills are left out, every other one
+    # is there
     device_only = {m["name"] for m in bench["per_layer"]
-                   if m["source"] == "device_trace"}
+                   if m["source"] == "device_trace"} | CARD_COUNTERS
     if res["attempted"] < 20:           # too few solves for a tail
         device_only.add("solve_p95_ms")
     assert want - device_only <= got <= want
@@ -106,28 +116,47 @@ def test_forbidden_compares_whole_names():
 
 
 def test_a_run_loads_no_jax_or_sblas():
+    """Nor does any rank of a cell of several chips."""
     code = (
         "import json\n"
         "from portbench import harness\n"
-        "from portbench.tests.conftest import run_small\n"
+        "from portbench.tests.conftest import SEED, small_config\n"
         "b = harness.load_benchmark()\n"
+        "found = set()\n"
         "for c in [w['name'] for w in b['workloads']]:\n"
-        "    run_small(b, c, trace=True, seconds=0.1)\n"
-        "print(json.dumps(harness.forbidden_modules()))\n")
+        "    found.update(harness.run_cell(\n"
+        "        c, SEED, 0.1, True, device='cpu', bench=b,\n"
+        "        config=small_config(b, c))[2])\n"
+        "print(json.dumps(sorted(found)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def test_refuses_without_the_cells_chips(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("there is a card here")
+@pytest.mark.parametrize("chips", [1, 4])
+def test_refuses_without_the_cells_chips(tmp_path, chips):
+    """Exit 2 and no result where torch sees fewer cards than the cell
+    asks for: a cell of BENCHMARK.json, and, in a copied tree, a cell
+    that asks for four."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= chips:
+        pytest.skip(f"there are {chips} card(s) here")
+    root, cell = ROOT, CELLS[0]
+    if chips > 1:
+        bench = harness.load_benchmark()
+        cell = "copied.four-chips"
+        bench["workloads"].append({**bench["workloads"][0], "name": cell,
+                                   "chips": chips})
+        (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+        shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        root = tmp_path
     out = subprocess.run(
-        [sys.executable, "-m", "portbench.run", "--workload", CELLS[0],
+        [sys.executable, "-m", "portbench.run", "--workload", cell,
          "--seed", str(SEED), "--seconds", "1", "--trace", "0"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and out.stdout.strip() == ""
+        cwd=root, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout.strip() == ""
+    assert f"needs {chips} CUDA device(s)" in out.stderr
 
 
 def test_fails_with_only_the_benchmark(tmp_path):

@@ -75,6 +75,21 @@ def test_summary():
     assert s["launch_links"] == 2
 
 
+def test_a_collectives_range_is_no_device_operation():
+    """On several cards the device timeline also holds the range that
+    ``torch.distributed`` records around an NCCL kernel: a copy of a host
+    range, not a second operation."""
+    evs = events() + [
+        Ev("nccl:_all_gather_base", 20, 45, dev=True),
+        Ev("ncclDevKernel_AllGather_RING_LL", 20, 45, dev=True, corr=503)]
+    s = trace.summarize(evs, ("spmv", "sptrsv", "precond"))
+    ops = dict((k, v) for k, v in s["device_ops"])
+    assert "nccl:_all_gather_base" not in ops
+    assert ops["ncclDevKernel_AllGather_RING_LL"] == pytest.approx(25e-9)
+    assert s["busy_s"] == pytest.approx(50e-9)
+    assert s["device_events"] == 4
+
+
 def test_no_solve_no_summary():
     assert trace.summarize([], ("spmv",)) is None
 

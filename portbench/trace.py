@@ -15,17 +15,22 @@ from collections import defaultdict
 from torch.autograd import DeviceType
 
 SOLVE = "solve"
+# the prefix of the ranges torch.distributed's NCCL calls record
+NCCL_RANGE = "nccl:"
 
 
 def activity(e, range_names) -> str:
     """The event's kind, from where it ran and its name (the card's torch
     gives events no kind): ``"device"`` (a kernel, copy or set),
-    ``"device_range"`` (a host range's copy on the device timeline),
-    ``"range"`` (a benchmark range), ``"launch"`` (a CUDA API call; their
-    names start with ``cu``) or ``"op"`` (a PyTorch operation)."""
+    ``"device_range"`` (a host range's copy on the device timeline: the
+    benchmark's, or a collective's ``nccl:<op>`` that ``torch.distributed``
+    records around its kernels), ``"range"`` (a benchmark range),
+    ``"launch"`` (a CUDA API call; their names start with ``cu``) or
+    ``"op"`` (a PyTorch operation)."""
     name = e.name()
     if e.device_type() != DeviceType.CPU:
-        return "device_range" if name in range_names else "device"
+        return "device_range" if name in range_names \
+            or name.startswith(NCCL_RANGE) else "device"
     if name in range_names:
         return "range"
     return "launch" if name.startswith("cu") else "op"
