@@ -9,10 +9,12 @@ JAX package's ``shard_map`` bodies make:
                                        the axis group, equal chunks along
                                        dim 0
 ``lax.psum``                           :func:`all_reduce`: ``dist.all_reduce``
-                                       (``SUM``)
+                                       (``SUM``; ``MAX`` for the halo
+                                       plan's width)
 ``lax.ppermute`` (a ring shift)        :func:`ppermute`:
                                        ``dist.batch_isend_irecv`` of one
-                                       send and one receive
+                                       send and one receive; several in
+                                       one batch: :func:`ppermutes`
 =====================================  ====================================
 
 (The JAX package's bodies use no ``psum_scatter``; the port has none.)
@@ -54,11 +56,12 @@ def all_gather(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
     return out.to(mesh.device)
 
 
-def all_reduce(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
-    """The sum over the axis's ranks of ``t``, on every rank of the axis
-    (a new tensor; ``t`` may be overwritten)."""
+def all_reduce(mesh: Mesh, axis: str, t: torch.Tensor,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) over the axis's ranks of ``t``, on every rank of
+    the axis (a new tensor; ``t`` may be overwritten)."""
     h = _host(mesh, t.contiguous())
-    dist.all_reduce(h, op=dist.ReduceOp.SUM, group=mesh.groups[axis])
+    dist.all_reduce(h, op=op, group=mesh.groups[axis])
     return h.to(mesh.device)
 
 
@@ -68,19 +71,29 @@ def ppermute(mesh: Mesh, axis: str, t: torch.Tensor,
     ``shift`` places after it (mod the axis size) and returns what the rank
     ``shift`` places before it sent (``lax.ppermute`` with the pairs
     ``(i, i + shift)``)."""
+    return ppermutes(mesh, axis, [(t, shift)])[0]
+
+
+def ppermutes(mesh: Mesh, axis: str, sends: list) -> list:
+    """Several ring shifts along ``axis`` in one batch of sends and
+    receives (one NCCL group): for each ``(t, shift)`` of ``sends``, in
+    order, what :func:`ppermute` returns. Two shifts to one rank arrive in
+    the order sent."""
     size = mesh.axis_size(axis)
     if size == 1:
-        return t
+        return [t for t, _ in sends]
     group = mesh.groups[axis]
     me = mesh.coord(axis)
     ranks = dist.get_process_group_ranks(group)
-    to = ranks[(me + shift) % size]
-    frm = ranks[(me - shift) % size]
-    send = _host(mesh, t.contiguous())
-    recv = torch.empty_like(send)
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, to, group=group),
-        dist.P2POp(dist.irecv, recv, frm, group=group)])
-    for w in works:
+    ops, recvs = [], []
+    for t, shift in sends:
+        send = _host(mesh, t.contiguous())
+        recv = torch.empty_like(send)
+        ops += [dist.P2POp(dist.isend, send, ranks[(me + shift) % size],
+                           group=group),
+                dist.P2POp(dist.irecv, recv, ranks[(me - shift) % size],
+                           group=group)]
+        recvs.append(recv)
+    for w in dist.batch_isend_irecv(ops):
         w.wait()
-    return recv.to(mesh.device)
+    return [r.to(mesh.device) for r in recvs]

@@ -15,12 +15,26 @@ ranks' dot products, and so their convergence tests, agree.
 
 ``M`` is a preconditioner of :mod:`sblas_torch.solvers` (a callable
 ``M(r)`` on the plan's device); ``x`` comes back on the plan's device.
+
+Given a :class:`~sblas_torch.parallel.spmv_halo.HaloSpmvPlan` (or its
+``sharded()`` view), ``dist_cg`` runs the same loop on row-sharded
+vectors instead: ``b``, ``x0``, ``M``'s argument and the ``x`` returned are
+this rank's rows, no rank holds a vector of all ``n`` rows, an SpMV moves
+the halo's two strips, and the dot products and norms are each rank's
+partial sums added by ``all_reduce``, two a iteration (``r . z`` with
+``||r||``, then ``p . Ap``), so every rank takes the same stopping
+decision::
+
+    plan = HaloSpmvPlan(rows, mesh, row0=r0)      # this rank's rows
+    x_own, info = dist_cg(plan, b_own, tol=1e-8,
+                          M=solvers.jacobi(rows, row0=r0, device=dev))
 """
 
 from __future__ import annotations
 
 from .. import solvers as _solvers
 from .spmv_dist import DistSpmvPlan
+from .spmv_halo import HaloSpmvPlan
 
 
 def _as_plan(a, mesh, strategy, local_method) -> DistSpmvPlan:
@@ -35,10 +49,16 @@ def dist_cg(a, b, *, mesh=None, strategy: str = "nnz_balanced",
             maxiter: int = 1000, M=None, x0=None):
     """Conjugate gradient for SPD A over a mesh (default: every rank). ``a``
     is a CSR/CSC or a :class:`DistSpmvPlan` (reuse it across solves:
-    partitioning is host work). Returns ``(x, {"iterations",
-    "rel_residual"})``."""
-    return _solvers.cg(_as_plan(a, mesh, strategy, local_method), b,
-                       tol=tol, maxiter=maxiter, M=M, x0=x0)
+    partitioning is host work), or a :class:`HaloSpmvPlan` or its
+    ``sharded()`` view, which make ``b``, ``x0`` and ``x`` this rank's rows
+    (module note). Returns ``(x, {"iterations", "rel_residual"})``."""
+    if isinstance(a, HaloSpmvPlan):
+        plan = a.sharded()
+    elif getattr(a, "reductions", None) is not None:
+        plan = a
+    else:
+        plan = _as_plan(a, mesh, strategy, local_method)
+    return _solvers.cg(plan, b, tol=tol, maxiter=maxiter, M=M, x0=x0)
 
 
 def dist_gmres(a, b, *, mesh=None, strategy: str = "nnz_balanced",

@@ -70,14 +70,17 @@ def _device(device) -> torch.device:
 
 
 @span("sblas.solvers.jacobi", "build")
-def jacobi(a, *, device=None):
+def jacobi(a, *, row0: int = 0, device=None):
     """Diagonal (Jacobi) preconditioner: ``z = r / diag(A)`` (a missing
-    diagonal entry counts as 1)."""
+    diagonal entry counts as 1). ``a`` may be a block of rows of the whole
+    matrix, ``(rows, n)`` with global columns, whose first row is row
+    ``row0`` (a rank's rows): its row ``i``'s diagonal is at column
+    ``row0 + i``, and ``z`` has its rows."""
     a = as_csr(a)
     coo = a.tocoo()
     with span("sblas.solvers.jacobi.diagonal", "build"):
         d = np.ones(a.shape[0], dtype=a.dtype)
-        m = coo.row == coo.col
+        m = (coo.row + row0 if row0 else coo.row) == coo.col
         d[coo.row[m]] = coo.data[m]
     inv = upload(cast(1.0 / d, a.dtype), _device(device))
 
@@ -257,6 +260,8 @@ def _setup(a, b, x0, name: str, method: str, device):
     n = plan.shape[0]
     if plan.shape[0] != plan.shape[1]:
         raise ValueError(f"{name} needs a square matrix")
+    if name != "cg" and getattr(plan, "reductions", None) is not None:
+        raise ValueError(f"{name} takes no row-sharded plan; cg does")
     kw = {"dtype": plan.dtype, "device": plan.device}
     b = torch.as_tensor(b, **kw)
     x = torch.zeros(n, **kw) if x0 is None else torch.as_tensor(x0, **kw)
@@ -267,6 +272,44 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v)
 
 
+class _OneDevice:
+    """Dot products and norms of vectors held whole on one device (or
+    replicated on every rank)."""
+
+    dot = staticmethod(torch.dot)
+    norm = staticmethod(_norm)
+
+    @staticmethod
+    def dot_norm(r: torch.Tensor, z: torch.Tensor):
+        return torch.dot(r, z), _norm(r)
+
+
+class _Late:
+    """A stopping test read one iteration late: :meth:`put` a flag on the
+    device at the end of an iteration's launches, :meth:`get` it after the
+    next iteration's. On a card the flag goes to pinned host memory behind
+    an event, so the read waits for that iteration alone and leaves the
+    next one queued."""
+
+    def __init__(self, device):
+        self.card = torch.device(device).type == "cuda"
+        if self.card:
+            self.host = torch.empty((), dtype=torch.bool, pin_memory=True)
+            self.done = torch.cuda.Event()
+
+    def put(self, flag: torch.Tensor) -> None:
+        if self.card:
+            self.host.copy_(flag, non_blocking=True)
+            self.done.record()
+        else:
+            self.host = flag
+
+    def get(self) -> bool:
+        if self.card:
+            self.done.synchronize()
+        return bool(self.host)
+
+
 def _rel(rnorm: torch.Tensor, bnorm: torch.Tensor) -> float:
     return float(rnorm / torch.clamp(bnorm, min=1e-30))
 
@@ -274,23 +317,48 @@ def _rel(rnorm: torch.Tensor, bnorm: torch.Tensor) -> float:
 def cg(a, b, *, tol: float = 1e-6, maxiter: int = 1000, M=None, x0=None,
        method: str = "auto", device=None):
     """Conjugate gradient for SPD ``A``; ``M`` as :func:`jacobi` or
-    :func:`ichol` returns. Returns ``(x, {"iterations", "rel_residual"})``."""
+    :func:`ichol` returns. Returns ``(x, {"iterations", "rel_residual"})``.
+
+    A plan with ``reductions`` (a row-sharded plan of
+    :mod:`sblas_torch.parallel`: each rank holds its rows of every vector)
+    gives the loop its dot products and norms; ``r . z`` and ``||r||`` come
+    from one call of its ``dot_norm``, so an iteration reduces twice. With
+    such a plan the loop reads each stopping test one iteration behind
+    (:class:`_Late`): it launches iteration ``k + 1`` before it reads
+    ``||r_k|| > stop``, and where that read stops it, drops iteration
+    ``k + 1`` and returns ``x_k``, so ``x``, the count and the residual are
+    those of the loop that reads first, at one iteration's launches more a
+    solve. Each card then holds an iteration's work while its rank's host
+    waits on the read and launches the next, so the ranks' host
+    turnarounds, which every rank would wait on at the next reduction,
+    stay off the cards' path."""
     plan, b, x = _setup(a, b, x0, "cg", method, device)
-    bnorm = _norm(b)
+    behind = getattr(plan, "reductions", None) is not None
+    red = plan.reductions if behind else _OneDevice
+    bnorm = red.norm(b)
     stop = torch.as_tensor(tol, dtype=plan.dtype) * bnorm
     r = plan(x, -1.0, 1.0, b)                      # b - A x0, fused
     z = M(r) if M is not None else r
-    p, rz, it = z, torch.dot(r, z), 0
-    while it < maxiter and bool(_norm(r) > stop):  # the one host read
+    rz, rnorm = red.dot_norm(r, z)
+    p, it = z, 0
+    if behind:
+        late = _Late(plan.device)
+        late.put(rnorm > stop)
+    while it < maxiter and (behind or bool(rnorm > stop)):  # the host read
         ap = plan(p)
-        alpha = rz / torch.dot(p, ap)
-        x = x + alpha * p
+        alpha = rz / red.dot(p, ap)
+        x, x_k = x + alpha * p, (x if behind else None)
         r = r - alpha * ap
         z = M(r) if M is not None else r
-        rz_new = torch.dot(r, z)
+        rz_new, rnorm_next = red.dot_norm(r, z)
         p = z + (rz_new / rz) * p
-        rz, it = rz_new, it + 1
-    return x, {"iterations": it, "rel_residual": _rel(_norm(r), bnorm)}
+        if behind:
+            if not late.get():                     # ||r_k||, one behind
+                x = x_k
+                break
+            late.put(rnorm_next > stop)
+        rnorm, rz, it = rnorm_next, rz_new, it + 1
+    return x, {"iterations": it, "rel_residual": _rel(rnorm, bnorm)}
 
 
 def bicgstab(a, b, *, tol: float = 1e-6, maxiter: int = 1000, M=None,

@@ -32,11 +32,20 @@ read. The other launches take the plain kernel: a counting launch is
 ``COUNT_EVERY`` makes a traced window's solves 0.7-1.2% slower. No span or
 counter has a switch of its own: with no profiler recording, a launch
 costs one flag read.
+
+**The distributed plans' counters** (:data:`DIST_COUNTERS`, read by
+:func:`dist_counts`), always on, in ``sblas_torch.parallel.spmv_halo``:
+the halo exchanges whose strips went to the neighbours, the bytes of those
+strips this rank sent, and the ``all_reduce`` calls of the row-sharded
+reductions. While a profiler records, the exchange and each reduction run
+inside a ``record_function`` range (:func:`op_range`):
+``sblas.halo.exchange`` and ``sblas.dist.allreduce``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import importlib
 import threading
@@ -65,6 +74,12 @@ COUNTERS = {"spmv_csr": ("spmv_csr", "LAUNCHES"),
             "sptrsv_csr": ("sptrsv_csr", "LAUNCHES"),
             "sptrsv_csr_f64": ("sptrsv_csr", "LAUNCHES_F64")}
 
+# the distributed plans' counters: (module under sblas_torch.parallel,
+# counter), each added to where its work is launched
+DIST_COUNTERS = {"halo.exchanges": ("spmv_halo", "EXCHANGES"),
+                 "halo.bytes_sent": ("spmv_halo", "EXCHANGE_BYTES"),
+                 "dist.allreduces": ("spmv_halo", "REDUCTIONS")}
+
 # the counting solve's sums, in the order of its buffer's columns
 # (csrc/sptrsv_csr.cu): cycles of each step of a row, then rows and polls
 SOLVE_STEPS = ("load", "wait", "fence", "gather", "store")
@@ -83,6 +98,15 @@ def recording() -> bool:
     """True while a ``torch.profiler`` records (between its ``start()``
     and ``stop()``)."""
     return _autograd_profiler._is_profiler_enabled
+
+
+def op_range(name: str):
+    """``record_function(name)`` while a profiler records, else a context
+    that does nothing: the ranges around the distributed plans'
+    collectives."""
+    if recording():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 class _Store:
@@ -197,6 +221,17 @@ def _wrapper(module: str):
     return importlib.import_module(f"sblas_torch.ops.kernels.{module}")
 
 
+def _parallel(module: str):
+    return importlib.import_module(f"sblas_torch.parallel.{module}")
+
+
+def dist_counts() -> dict:
+    """The distributed plans' counts so far, by the names of
+    :data:`DIST_COUNTERS`."""
+    return {name: getattr(_parallel(mod), attr)
+            for name, (mod, attr) in DIST_COUNTERS.items()}
+
+
 def launch_counts() -> dict:
     """Every kernel build's launches so far, by the names of
     :data:`COUNTERS`."""
@@ -262,7 +297,8 @@ def counters() -> dict:
 
 def reset() -> None:
     """Clear the spans' store, the counting solve's sums (its buffers are
-    zeroed on the device) and every launch count."""
+    zeroed on the device), every launch count and the distributed plans'
+    counts."""
     with _STORE.lock:
         bufs = list(_STORE.solve_buffers.values())
     for buf in bufs:
@@ -270,3 +306,5 @@ def reset() -> None:
     _STORE.clear()
     for mod, attr in COUNTERS.values():
         setattr(_wrapper(mod), attr, 0)
+    for mod, attr in DIST_COUNTERS.values():
+        setattr(_parallel(mod), attr, 0)
